@@ -6,30 +6,40 @@ at mainnet shapes, and holds each of its three CUDA kernels against its
 plain torch version on the card. Phases, in order; any failure raises:
 
 1. device: require CUDA, print the card's name and power limit, build the
-   kernels from ``lighthouse_tpu_torch/csrc`` and print the build time;
-2. kernels: K1 ``fp_mul_cols`` (raw columns bit-exact, reduced limbs
-   canonical-equal), K2 ``fp2_mul`` and K3 ``fp2_sq`` (canonical-equal,
-   limbs in [0, 8191]) against their plain versions at the main path's
-   lane counts, then CUDA-event timings (median of 25);
+   kernels from ``lighthouse_tpu_torch/csrc`` and print the build time and
+   what ptxas reports (registers, spills);
+2. kernels: K1 ``fp_mul_cols`` (raw columns and reduced limbs equal),
+   K2 ``fp2_mul`` and K3 ``fp2_sq`` (canonical-equal, limbs in [0, 8191])
+   against their plain versions at 1, 3, 5, 1170 and 3474 lanes, with the
+   all-8191 and all-zero worst cases, a broadcast operand and an empty
+   batch;
 3. gossip batch: 64 single-signer attestations from 8 committees of one
    slot (K = 1, M = 8): valid -> True, one message tampered -> False; the
    decompressed signatures and the device hash-to-G2 of this batch are
    also held against the host oracle;
 4. block batch: 128 aggregate attestations with 180..229 signers each plus
    the proposal and RANDAO sets (B = 130 on the 192 rung, K <= 256,
-   M = 130): valid -> True, one non-subgroup signature -> False.
+   M = 130): valid -> True, one non-subgroup signature -> False;
+5. kernel timings where the path runs them: each kernel checked again and
+   timed (device ms per launch, launches queued back to back behind a
+   device sleep, CUDA events) with its plain version and its bound at 1
+   lane, at the most frequent and at the largest lane count of the block
+   batch's valid verify, and at the shapes earlier versions timed;
+6. one more valid verify of each batch under torch.profiler: the device
+   busy share, and each kernel's device ms per verify beside its lanes
+   per verify and the bound summed over them.
 
-Each batch is verified three times (median wall printed); at the end one
-more valid verify of each runs under torch.profiler for the device busy
-share.
+Each batch is verified three times (median wall printed).
 
-The counts of kernel launches are set to 0 just before each verify and
-read just after it. The kernels line reports the launches of the valid
-block-batch verify. Keys and messages are made from ``--seed``; the host
-signer (pure Python) is independent of the device hash-to-curve.
+The counts of kernel launches (and the lanes they carry) are set to 0
+just before each verify and read just after it. The kernels line reports
+the launches of the valid block-batch verify. Keys and messages are made
+from ``--seed``; the host signer (pure Python) is independent of the
+device hash-to-curve.
 
     python3 chip_smoke.py            # the full check (one card)
-    python3 chip_smoke.py --quick    # build + kernel checks + a tiny verify
+    python3 chip_smoke.py --quick    # build, kernel checks and timings, a tiny verify
+    python3 chip_smoke.py --time-only DIR   # time the kernels of the checkout at DIR
 """
 
 from __future__ import annotations
@@ -40,14 +50,38 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 MEM_RATE = 3.35e12        # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 INT32_MAC_RATE = 16.75e12  # int32 multiply-adds/s: 64 INT32 lanes/SM x 132 SMs x 1.98 GHz
-K1_LANES = 81 * 65         # an Fp12 product's 81 Fp lanes at 65 Miller lanes
-K23_LANES = 27 * 193       # an Fp12 mul_pairs' 27 Fp2 lanes at the block batch's B+1
+SLEEP_HZ = 2.0e9           # cycles per second for torch.cuda._sleep (above the SM clock)
+
+KERNELS = ("fp_mul_cols", "fp2_mul", "fp2_sq")
+REPLACES = {
+    "fp_mul_cols": "lighthouse_tpu/crypto/device/pallas_fp.py:60",
+    "fp2_mul": "lighthouse_tpu/crypto/device/pallas_fp2.py:145",
+    "fp2_sq": "lighthouse_tpu/crypto/device/pallas_fp2.py:159",
+}
+# the kernel's name in the profiler's rows
+PROFILE_NAME = {"fp_mul_cols": "::fp_mul_kernel", "fp2_mul": "::fp2_mul_kernel",
+                "fp2_sq": "::fp2_sq_kernel"}
+# bytes one lane reads and writes: two (one) operands and the result
+LANE_BYTES = {"fp_mul_cols": 3 * 32 * 4, "fp2_mul": 3 * 64 * 4, "fp2_sq": 2 * 64 * 4}
+# Lane counts every kernel is checked at: 1, ragged blocks, and the
+# largest K2 launch of the block batch.
+CHECK_LANES = (1, 3, 5, 1170, 3474)
+# Timing shapes of --quick, which runs no batch: 1 lane, the most frequent
+# and the largest lane count of the block batch (seed 0). The full run
+# times at the counts its own block verify launched.
+QUICK_LANES = {"fp_mul_cols": (1, 192, 147456), "fp2_mul": (1, 18, 960, 3474),
+               "fp2_sq": (1, 96, 960)}
+# The shapes earlier versions of this script timed (an Fp12 product's 81
+# Fp lanes at 65 Miller lanes; 27 Fp2 lanes at 193): the path does not
+# launch these counts; they are timed to compare with those times.
+EARLIER_LANES = {"fp_mul_cols": 81 * 65, "fp2_mul": 27 * 193, "fp2_sq": 27 * 193}
 
 
 def log(*a):
@@ -62,88 +96,170 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
+def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls queued behind a
+    device-side sleep, so that the card runs them back to back whatever the
+    host's speed, timed by CUDA events; the median of ``rounds``. Raises if
+    the host did not finish queueing before the sleep ended."""
+    fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    sleep_s = 3 * reps * (time.perf_counter() - t0) + 1e-3
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
+        t0 = time.perf_counter()
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
+        queued_s = time.perf_counter() - t0
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        if queued_s > sleep_s:
+            raise RuntimeError(f"timing: queueing took {queued_s:.4f} s, longer "
+                               f"than the {sleep_s:.4f} s device sleep")
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
+def bound(name: str, lanes: int):
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    ``lanes`` lanes of kernel ``name``."""
+    from lighthouse_tpu_torch.crypto.device import kernels
+
+    byte_s = lanes * LANE_BYTES[name] / MEM_RATE
+    op_s = lanes * kernels.macs_per_lane(name) / INT32_MAC_RATE
+    return max(byte_s, op_s) * 1e3, "bytes" if byte_s >= op_s else "operations"
+
+
 # ---------------------------------------------------------------------------
-# Phase 2: kernels against their plain versions
+# Kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(rng, dev):
+def operands(rng, name: str, lanes: int, dev):
+    """Random relaxed limbs for ``lanes`` lanes of kernel ``name``, with the
+    all-8191 worst case in lane 0 and zeros in lane 1."""
+    from lighthouse_tpu_torch.crypto.device import fp
+
+    shape = (lanes, fp.NL) if name == "fp_mul_cols" else (lanes, 2, fp.NL)
+    out = []
+    for _ in range(1 if name == "fp2_sq" else 2):
+        a = rng.integers(0, fp.LIMB_MAX + 1, size=shape, dtype=np.int32)
+        a[0] = fp.LIMB_MAX
+        a[1:2] = 0
+        out.append(torch.from_numpy(a).to(dev))
+    return out
+
+
+def calls(name: str):
+    """(kernel wrapper, plain version) of the main path's mode of ``name``."""
+    from lighthouse_tpu_torch.crypto.device import kernels
+
+    return {
+        "fp_mul_cols": (kernels.fp_mul, kernels.fp_mul_plain),
+        "fp2_mul": (kernels.fp2_mul, kernels.fp2_mul_plain),
+        "fp2_sq": (kernels.fp2_sq, kernels.fp2_sq_plain),
+    }[name]
+
+
+def check_kernel(name: str, args) -> tuple[int, bool]:
+    """Hold one launch against the plain version: K1's raw columns and
+    reduced limbs must be equal; K2 and K3 canonical-equal with limbs in
+    [0, 8191]. Returns (max abs canonical error, limbs equal)."""
     from lighthouse_tpu_torch.crypto.device import fp, kernels
 
-    def limbs(*shape):
-        a = rng.integers(0, fp.LIMB_MAX + 1, size=(*shape, fp.NL), dtype=np.int32)
-        a[0] = fp.LIMB_MAX   # the worst case: every limb at LIMB_MAX
-        a[1] = 0
-        return torch.from_numpy(a).to(dev)
-
-    def check_reduced(got, want, name):
-        if int(got.min()) < 0 or int(got.max()) > fp.LIMB_MAX:
-            raise AssertionError(f"{name}: limbs outside [0, {fp.LIMB_MAX}]")
-        gc, wc = fp.canonical(got), fp.canonical(want)
-        err = int((gc - wc).abs().max())
-        if err:
-            raise AssertionError(f"{name}: canonical values differ (max {err})")
-        return err, bool(torch.equal(got, want))
-
-    rows = []
-    x, y = limbs(K1_LANES), limbs(K1_LANES)
-    raw = kernels.fp_mul_cols(x, y)
-    raw_plain = kernels.fp_mul_cols_plain(x, y)
+    fn, plain = calls(name)
+    got, want = fn(*args), plain(*args)
     torch.cuda.synchronize()
-    if not torch.equal(raw, raw_plain):
-        raise AssertionError("fp_mul_cols: raw columns differ from the plain version")
-    err1, exact1 = check_reduced(kernels.fp_mul(x, y), kernels.fp_mul_plain(x, y),
-                                 "fp_mul_cols (reduced)")
-    rows.append(dict(
-        name="fp_mul_cols", fn=lambda: kernels.fp_mul(x, y),
-        plain=lambda: kernels.fp_mul_plain(x, y), lanes=K1_LANES,
-        bytes=K1_LANES * 3 * fp.NL * 4, err=err1, exact=exact1,
-        replaces="lighthouse_tpu/crypto/device/pallas_fp.py:60",
-        shape=f"x, y int32[{K1_LANES}, 32] -> [{K1_LANES}, 32] (raw [.., 63] bit-exact)",
-    ))
-    a, b = limbs(K23_LANES, 2), limbs(K23_LANES, 2)
-    err2, exact2 = check_reduced(kernels.fp2_mul(a, b), kernels.fp2_mul_plain(a, b), "fp2_mul")
-    rows.append(dict(
-        name="fp2_mul", fn=lambda: kernels.fp2_mul(a, b),
-        plain=lambda: kernels.fp2_mul_plain(a, b), lanes=K23_LANES,
-        bytes=K23_LANES * 3 * 2 * fp.NL * 4, err=err2, exact=exact2,
-        replaces="lighthouse_tpu/crypto/device/pallas_fp2.py:145",
-        shape=f"x, y int32[{K23_LANES}, 2, 32] -> [{K23_LANES}, 2, 32]",
-    ))
-    err3, exact3 = check_reduced(kernels.fp2_sq(a), kernels.fp2_sq_plain(a), "fp2_sq")
-    rows.append(dict(
-        name="fp2_sq", fn=lambda: kernels.fp2_sq(a),
-        plain=lambda: kernels.fp2_sq_plain(a), lanes=K23_LANES,
-        bytes=K23_LANES * 2 * 2 * fp.NL * 4, err=err3, exact=exact3,
-        replaces="lighthouse_tpu/crypto/device/pallas_fp2.py:159",
-        shape=f"x int32[{K23_LANES}, 2, 32] -> [{K23_LANES}, 2, 32]",
-    ))
-    for r in rows:
-        r["ms"] = median_ms(r["fn"])
-        r["plain_ms"] = median_ms(r["plain"])
-        byte_s = r["bytes"] / MEM_RATE
-        op_s = r["lanes"] * kernels.macs_per_lane(r["name"]) / INT32_MAC_RATE
-        r["bound_ms"] = max(byte_s, op_s) * 1e3
-        r["bound_by"] = "bytes" if byte_s >= op_s else "operations"
-        log(f"kernel {r['name']}: {r['shape']}; max_abs_err {r['err']} "
-            f"(limbs bit-exact: {r['exact']}); {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    return rows
+    if name == "fp_mul_cols":
+        if not torch.equal(kernels.fp_mul_cols(*args), kernels.fp_mul_cols_plain(*args)):
+            raise AssertionError("fp_mul_cols: raw columns differ from the plain version")
+        if not torch.equal(got, want):
+            raise AssertionError("fp_mul_cols: reduced limbs differ from the plain version")
+        return 0, True
+    if got.numel() and (int(got.min()) < 0 or int(got.max()) > fp.LIMB_MAX):
+        raise AssertionError(f"{name}: limbs outside [0, {fp.LIMB_MAX}]")
+    err = int((fp.canonical(got) - fp.canonical(want)).abs().max()) if got.numel() else 0
+    if err:
+        raise AssertionError(f"{name}: canonical values differ (max {err})")
+    return err, bool(torch.equal(got, want))
+
+
+def check_kernels(rng, dev) -> dict:
+    """Every kernel at CHECK_LANES, with broadcast operands and an empty
+    batch. Returns {name: max abs error}."""
+    from lighthouse_tpu_torch.crypto.device import kernels
+
+    errs = dict.fromkeys(KERNELS, 0)
+    for name in KERNELS:
+        exact = []
+        for lanes in CHECK_LANES:
+            args = operands(rng, name, lanes, dev)
+            err, eq = check_kernel(name, args)
+            errs[name] = max(errs[name], err)
+            exact.append(eq)
+            if len(args) == 2:  # one operand broadcast over the lanes
+                check_kernel(name, (args[0], args[1][:1]))
+        fn, _ = calls(name)
+        empty = operands(rng, name, 2, dev)
+        if fn(*(a[:0] for a in empty)).shape[0] != 0:
+            raise AssertionError(f"{name}: an empty batch gave a non-empty result")
+        log(f"kernel {name}: equal to its plain version at {CHECK_LANES} lanes, "
+            f"broadcast and empty (limbs equal: {all(exact)})")
+    kernels.reset_launches()
+    return errs
+
+
+def time_kernels(rng, dev, shapes: dict, errs: dict) -> dict:
+    """Check and time each kernel and its plain version at the given lane
+    counts. Returns {name: [timing dict, ...]}."""
+    out = {}
+    for name in KERNELS:
+        fn, plain = calls(name)
+        rows = []
+        for lanes in shapes[name]:
+            args = operands(rng, name, lanes, dev)
+            err, _ = check_kernel(name, args)
+            errs[name] = max(errs[name], err)
+            ms = device_ms(lambda: fn(*args))
+            plain_ms = device_ms(lambda: plain(*args), reps=5, rounds=3)
+            b_ms, b_by = bound(name, lanes)
+            rows.append(dict(lanes=lanes, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by))
+            log(f"  {name} at {lanes} lanes: {ms:.4f} ms (plain {plain_ms:.4f} ms), "
+                f"bound {b_ms:.3g} ms ({b_by}), at {b_ms / ms:.2%} of the bound")
+            del args
+        out[name] = rows
+    return out
+
+
+def lane_summary(label: str, hist: dict) -> None:
+    for name in KERNELS:
+        h = hist[name]
+        n, lanes = sum(h.values()), sum(k * v for k, v in h.items())
+        top = ", ".join(f"{k}: {v}" for k, v in sorted(h.items(), key=lambda kv: -kv[1])[:6])
+        log(f"lanes {label} {name}: {lanes} lanes in {n} launches (mean "
+            f"{lanes / max(n, 1):.1f}, max {max(h, default=0)}); most frequent "
+            f"(lanes: launches) {top}")
+
+
+def path_shapes(hist: dict) -> dict:
+    """1 lane, the most frequent lane count, the largest, and the earlier
+    versions' shape, for each kernel."""
+    out = {}
+    for name in KERNELS:
+        h = hist[name]
+        out[name] = sorted({1, mode_of(hist, name), max(h), EARLIER_LANES[name]})
+    return out
+
+
+def mode_of(hist: dict, name: str) -> int:
+    """The most frequent lane count of ``name`` (the larger one on a tie)."""
+    return max(hist[name].items(), key=lambda kv: (kv[1], kv[0]))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -220,10 +336,11 @@ def non_subgroup_signature(rng):
 def timed_verify(backend, sets, label, expect, reps: int = 3):
     """``reps`` verifies of one batch, each with the launch counts set to 0
     just before it and read just after it; prints every wall time and the
-    median. Returns (median wall, counts of the last run)."""
+    median. Returns (median wall, launch counts and lane histograms
+    {kernel: {lanes: launches}} of the last run)."""
     from lighthouse_tpu_torch.crypto.device import kernels
 
-    walls, counts = [], None
+    walls, counts, hist = [], None, None
     for _ in range(reps):
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -236,13 +353,14 @@ def timed_verify(backend, sets, label, expect, reps: int = 3):
         if counts is not None and counts != kernels.launches:
             raise AssertionError(f"{label}: launch counts differ between runs")
         counts = dict(kernels.launches)
+        hist = {k: dict(h) for k, h in kernels.lane_hist.items()}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched: {missing}")
     wall = statistics.median(walls)
     log(f"{label}: verdict {expect} x{reps}; {wall:.3f} s per verify (median of "
         f"{', '.join(f'{w:.3f}' for w in walls)}); launches {json.dumps(counts)}")
-    return wall, counts
+    return wall, counts, hist
 
 
 def check_stage1_against_host(sets, msgs, hs, dev):
@@ -272,7 +390,8 @@ def check_stage1_against_host(sets, msgs, hs, dev):
 
 def profile_verify(backend, sets, label, wall):
     """One more verify under torch.profiler: the device time by kernel
-    name, and the device's busy share of ``wall`` (the unprofiled median)."""
+    name, and the device's busy share of ``wall`` (the unprofiled median).
+    Returns {kernel: device ms} for the port's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -294,18 +413,26 @@ def profile_verify(backend, sets, label, wall):
         f"device ops; idle share {1 - busy_s / wall:.3f} of the {wall:.3f} s median wall")
     for dev_us, count, key in rows[:10]:
         log(f"  {dev_us / 1e3:9.3f} ms {count:7d}x  {key[:80]}")
+    return {name: sum(r[0] for r in rows if PROFILE_NAME[name] in r[2]) / 1e3
+            for name in KERNELS}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quick", action="store_true",
-                    help="build, kernel checks and one tiny verify only")
+                    help="build, kernel checks and timings, one tiny verify")
+    ap.add_argument("--time-only", metavar="ROOT",
+                    help="only check and time the kernels of the checkout at ROOT "
+                         "(--quick's lane counts and the earlier shapes) and print "
+                         "them as one JSON line: to compare two trees in one run")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.time_only:
+        sys.path.insert(0, str(Path(args.time_only).resolve()))
     from lighthouse_tpu_torch.crypto.device import bls as dbls, kernels
 
     dev = torch.device("cuda", 0)
@@ -317,15 +444,24 @@ def main() -> int:
     info = kernels.build_info
     log(f"kernel build: {info['seconds']:.2f} s ({info['library']})")
     for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
     rng = np.random.default_rng(args.seed)
+    if args.time_only:
+        shapes = {k: sorted({*QUICK_LANES[k], EARLIER_LANES[k]}) for k in KERNELS}
+        timings = time_kernels(rng, dev, shapes, dict.fromkeys(KERNELS, 0))
+        log(card)
+        print(json.dumps({"root": args.time_only, "source": str(kernels.SOURCE),
+                          "timings": timings}), flush=True)
+        return 0
     log("phase 2 kernels vs plain versions")
-    rows = check_kernels(rng, dev)
+    errs = check_kernels(rng, dev)
 
     backend = dbls.CudaBackend(device=dev)
     if args.quick:
+        log("kernel timings (device ms per launch, launches queued back to back)")
+        time_kernels(rng, dev, QUICK_LANES, errs)
         sets, msgs, hs = gossip_sets(rng, 1000)
         sets = sets[:2]
         timed_verify(backend, sets, "quick verify (B=2)", True, reps=1)
@@ -344,7 +480,7 @@ def main() -> int:
     dbls.pack_signature_sets_raw(sets, device=dev)
     torch.cuda.synchronize()
     log(f"gossip host pack (parse, limbs, hash_to_field, copy): {time.perf_counter() - t0:.3f} s")
-    gwall, _ = timed_verify(backend, sets, "gossip valid", True)
+    gwall, gcounts, ghist = timed_verify(backend, sets, "gossip valid", True)
     tampered = list(sets)
     sig, pks, m = tampered[17]
     tampered[17] = (sig, pks, bytes([m[0] ^ 1]) + m[1:])
@@ -360,27 +496,50 @@ def main() -> int:
     dbls.pack_signature_sets_raw(bsets, device=dev)
     torch.cuda.synchronize()
     log(f"block host pack (parse, limbs, hash_to_field, copy): {time.perf_counter() - t0:.3f} s")
-    bwall, counts = timed_verify(backend, bsets, "block valid", True)
+    bwall, counts, bhist = timed_verify(backend, bsets, "block valid", True)
     poisoned = list(bsets)
     poisoned[5] = (non_subgroup_signature(rng), bsets[5][1], bsets[5][2])
     timed_verify(backend, poisoned, "block non-subgroup signature", False)
+    lane_summary("gossip valid", ghist)
+    lane_summary("block valid", bhist)
+
+    log("phase 5 kernel timings at the block batch's lane counts (device ms "
+        "per launch, launches queued back to back)")
+    timings = time_kernels(rng, dev, path_shapes(bhist), errs)
     # profiled after every timed run: a torch.profiler session slows the
     # launches that follow it (35-45% on an H100)
-    profile_verify(backend, sets, "gossip valid", gwall)
-    profile_verify(backend, bsets, "block valid", bwall)
+    log("phase 6 profiles")
+    gdev = profile_verify(backend, sets, "gossip valid", gwall)
+    bdev = profile_verify(backend, bsets, "block valid", bwall)
+    per_verify = {}
+    for label, dev_ms, cnt, hist in (("gossip", gdev, gcounts, ghist),
+                                     ("block", bdev, counts, bhist)):
+        for k in KERNELS:
+            lanes = sum(n * c for n, c in hist[k].items())
+            b_ms = sum(bound(k, n)[0] * c for n, c in hist[k].items())
+            log(f"per {label} verify {k}: {dev_ms[k]:.3f} device ms in {cnt[k]} "
+                f"launches ({1e3 * dev_ms[k] / cnt[k]:.2f} us each), {lanes} lanes, "
+                f"bound over those lanes {b_ms:.4f} ms ({b_ms / dev_ms[k]:.2%})")
+            if label == "block":
+                per_verify[k] = dict(lanes=lanes, device_ms=dev_ms[k], bound_ms=b_ms)
     log(card)
 
-    print(json.dumps({"kernels": [
-        {
-            "name": r["name"], "route": "cuda",
+    rows = []
+    for k in KERNELS:
+        at = {r["lanes"]: r for r in timings[k]}[mode_of(bhist, k)]
+        rows.append({
+            "name": k, "route": "cuda",
             "source": "lighthouse_tpu_torch/csrc/fp_kernels.cu",
-            "replaces": r["replaces"], "launches": counts[r["name"]],
-            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
-        }
-        for r in rows
-    ]}), flush=True)
+            "replaces": REPLACES[k], "launches": counts[k],
+            "max_abs_err": errs[k], "lanes": at["lanes"], "ms": at["ms"],
+            "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": None,
+            "lanes_per_verify": per_verify[k]["lanes"],
+            "device_ms_per_verify": per_verify[k]["device_ms"],
+            "bound_ms_per_verify": per_verify[k]["bound_ms"],
+            "timings": timings[k],
+        })
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -18,9 +18,11 @@ on a machine without ``nvcc`` or a card.
 Each wrapper takes its plain version only for tensors that lie on the
 CPU. For CUDA tensors it launches the kernel or raises: there is no
 fallback. ``launches`` counts kernel launches, one per launch and nowhere
-else. K1 reduces inside the kernel (the ``reduce`` flag), so ``fp.mul``
-on the card is one launch; the raw-column mode exists to hold the kernel
-against ``mul_cols_int8`` column for column.
+else; ``lanes`` sums the lanes (Fp or Fp2 elements) of those launches and
+``lane_hist`` counts launches by lane count, updated at the same place.
+K1 reduces inside the kernel (the ``reduce`` flag), so ``fp.mul`` on the
+card is one launch; the raw-column mode exists to hold the kernel against
+``mul_cols_int8`` column for column.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -55,11 +58,23 @@ PLANS = {
 _MAX_LIMBS = 96  # a warp holds limbs t, t+32, t+64 of a lane
 
 launches = {"fp_mul_cols": 0, "fp2_mul": 0, "fp2_sq": 0}
+lanes = dict.fromkeys(launches, 0)
+lane_hist = {k: Counter() for k in launches}
 
 
 def reset_launches() -> None:
+    """Set ``launches``, ``lanes`` and ``lane_hist`` to zero."""
     for k in launches:
         launches[k] = 0
+        lanes[k] = 0
+        lane_hist[k].clear()
+
+
+def _count(name: str, n: int) -> None:
+    """Record one launch of kernel ``name`` over ``n`` lanes."""
+    launches[name] += 1
+    lanes[name] += n
+    lane_hist[name][n] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -147,26 +162,28 @@ def _c_array(name: str, ctype: str, rows) -> str:
 
 
 def tables_header() -> str:
-    """The generated header: FOLD, SAT and the reduction plans, from
-    ``fp``. Checks that every plan stays inside the warp's 96 limbs."""
+    """The generated header: the FOLD rows the plans use, SAT, and each
+    reduction plan as a compile-time type ``Plan<input limbs, steps...>``
+    (0 a carry round, k > 0 a fold of k high limbs), which the kernels
+    unroll. Checks that every plan stays inside the warp's 96 limbs."""
+    fold_rows = max(max(fp.plan(tuple(b)), default=1) for b in PLANS.values())
+    assert fold_rows <= fp.FOLD.shape[0]
     out = [
         "// Generated by lighthouse_tpu_torch.crypto.device.kernels.tables_header()\n",
         "// from the port's fp module: reduction tables and carry/fold plans.\n",
         "#pragma once\n",
-        f"constexpr int kFoldRows = {fp.FOLD.shape[0]};\n",
-        _c_array("kFold", "unsigned int", fp.FOLD.tolist()),
+        f"constexpr int kFoldRows = {fold_rows};\n",
+        _c_array("kFold", "unsigned int", fp.FOLD[:fold_rows].tolist()),
         _c_array("kSat", "unsigned int", fp.SAT.tolist()),
     ]
     for name, bounds in PLANS.items():
         steps = fp.plan(tuple(bounds))
         n = len(bounds)
         for k in steps:
-            assert k <= fp.FOLD.shape[0]
             n = fp.NL if k else n + 1
             assert n <= _MAX_LIMBS, f"plan {name} needs {n} limbs"
-        out.append(f"constexpr int kPlan{name}Len = {len(steps)};\n")
-        vals = ", ".join(str(k) for k in steps) or "0"
-        out.append(f"__constant__ int kPlan{name}[{max(len(steps), 1)}] = {{{vals}}};\n")
+        args = ", ".join(str(v) for v in (len(bounds), *steps))
+        out.append(f"using Plan{name} = Plan<{args}>;\n")
     return "".join(out)
 
 
@@ -262,7 +279,7 @@ def _launch_fp_mul(x, y, reduce: bool):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(lib.lh_fp_mul(x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
                          int(reduce), stream), "fp_mul_cols")
-    launches["fp_mul_cols"] += 1
+    _count("fp_mul_cols", n)
     return out
 
 
@@ -295,7 +312,7 @@ def fp2_mul(x, y):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(lib.lh_fp2_mul(x.data_ptr(), y.data_ptr(), out.data_ptr(), n, stream),
            "fp2_mul")
-    launches["fp2_mul"] += 1
+    _count("fp2_mul", n)
     return out
 
 
@@ -311,5 +328,5 @@ def fp2_sq(x):
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(lib.lh_fp2_sq(x.data_ptr(), out.data_ptr(), n, stream), "fp2_sq")
-    launches["fp2_sq"] += 1
+    _count("fp2_sq", n)
     return out

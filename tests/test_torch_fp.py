@@ -9,6 +9,8 @@ packages run the same reduction plan); every other function must give
 the same canonical value, with every port limb in [0, LIMB_MAX].
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -134,12 +136,42 @@ def test_inv_pow_and_predicates(operands):
 
 
 def test_plans_fit_the_kernel_warp():
-    """The generated header carries every plan, each inside 96 limbs."""
+    """The generated header carries every plan as a compile-time type
+    ``Plan<input limbs, steps...>``, in order, each inside the warp's 96
+    limbs and inside the FOLD rows the header holds."""
     header = kernels.tables_header()
+    rows = int(re.search(r"constexpr int kFoldRows = (\d+);", header).group(1))
+    assert f"kFold[{rows}][{fp.NL}]" in header
+    at = -1
     for name, bounds in kernels.PLANS.items():
         steps = fp.plan(tuple(bounds))
-        assert f"kPlan{name}Len = {len(steps)};" in header
+        args = ", ".join(str(v) for v in (len(bounds), *steps))
+        line = f"using Plan{name} = Plan<{args}>;"
+        assert header.find(line) > at, line
+        at = header.find(line)
+        n = len(bounds)
+        for k in steps:
+            assert k <= rows and (k == 0 or n == fp.NL + k)
+            n = fp.NL if k else n + 1
+            assert n <= 96, f"plan {name} needs {n} limbs"
+        assert n == fp.NL
     assert fp.plan(fp.MUL_COL_BOUNDS)[:3] == (0, 0, 33)
+
+
+def test_lane_counters_follow_launches():
+    """``lanes`` and ``lane_hist`` move with ``launches`` and reset with it."""
+    kernels.reset_launches()
+    try:
+        for n in (1, 192, 192):
+            kernels._count("fp_mul_cols", n)
+        kernels._count("fp2_mul", 18)
+        assert kernels.launches == {"fp_mul_cols": 3, "fp2_mul": 1, "fp2_sq": 0}
+        assert kernels.lanes == {"fp_mul_cols": 385, "fp2_mul": 18, "fp2_sq": 0}
+        assert kernels.lane_hist["fp_mul_cols"] == {1: 1, 192: 2}
+    finally:
+        kernels.reset_launches()
+    assert kernels.lanes == dict.fromkeys(kernels.launches, 0)
+    assert not any(kernels.lane_hist.values())
 
 
 def test_wrappers_never_fall_back_off_the_cpu(operands):

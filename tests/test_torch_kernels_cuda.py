@@ -8,7 +8,8 @@ the JAX package, so it also runs on a machine without them:
 
 Tolerances: K1 raw columns and reduced limbs equal to the plain versions
 (exact integers, same reduction plan); K2/K3 canonical-equal with limbs
-in [0, 8191]; verdicts as expected.
+in [0, 8191]; verdicts as expected. Lane counts 1 to 3474 cover one lane,
+ragged blocks and the largest K2 launch of the verify path.
 """
 
 import numpy as np
@@ -27,33 +28,48 @@ def dev():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+# 1 lane, ragged blocks of K1/K3's four lanes, and the block batch's
+# largest K2 launch
+LANES = (1, 3, 5, 1170, 3474)
+
+
 def _limbs(rng, *shape):
     """Random relaxed limbs with the all-8191 worst case and zeros."""
     a = rng.integers(0, fp.LIMB_MAX + 1, size=(*shape, fp.NL), dtype=np.int32)
     a[0] = fp.LIMB_MAX
-    a[1] = 0
+    a[1:2] = 0
     return a
 
 
-def test_k1_matches_plain(dev):
-    rng = np.random.default_rng(11)
-    x, y = (torch.from_numpy(_limbs(rng, 13)).to(dev) for _ in range(2))
+def _canonical_equal(got, want):
+    assert int(got.min()) >= 0 and int(got.max()) <= fp.LIMB_MAX
+    assert torch.equal(fp.canonical(got), fp.canonical(want))
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_k1_matches_plain(dev, lanes):
+    rng = np.random.default_rng(11 + lanes)
+    x, y = (torch.from_numpy(_limbs(rng, lanes)).to(dev) for _ in range(2))
     assert torch.equal(kernels.fp_mul_cols(x, y), kernels.fp_mul_cols_plain(x, y))
     got = kernels.fp_mul(x, y)
     assert torch.equal(got, kernels.fp_mul_plain(x, y))
     assert int(got.min()) >= 0 and int(got.max()) <= fp.LIMB_MAX
     # broadcasting and an empty batch
     assert torch.equal(kernels.fp_mul(x, y[:1]), kernels.fp_mul_plain(x, y[:1]))
+    assert torch.equal(kernels.fp_mul_cols(x[:1], y), kernels.fp_mul_cols_plain(x[:1], y))
     assert kernels.fp_mul(x[:0], y[:0]).shape == (0, fp.NL)
 
 
-def test_k2_k3_match_plain(dev):
-    rng = np.random.default_rng(12)
-    a, b = (torch.from_numpy(_limbs(rng, 37, 2)).to(dev) for _ in range(2))
-    for got, want in ((kernels.fp2_mul(a, b), kernels.fp2_mul_plain(a, b)),
-                      (kernels.fp2_sq(a), kernels.fp2_sq_plain(a))):
-        assert int(got.min()) >= 0 and int(got.max()) <= fp.LIMB_MAX
-        assert torch.equal(fp.canonical(got), fp.canonical(want))
+@pytest.mark.parametrize("lanes", LANES)
+def test_k2_k3_match_plain(dev, lanes):
+    rng = np.random.default_rng(12 + lanes)
+    a, b = (torch.from_numpy(_limbs(rng, lanes, 2)).to(dev) for _ in range(2))
+    _canonical_equal(kernels.fp2_mul(a, b), kernels.fp2_mul_plain(a, b))
+    _canonical_equal(kernels.fp2_sq(a), kernels.fp2_sq_plain(a))
+    # broadcasting and empty batches
+    _canonical_equal(kernels.fp2_mul(a, b[:1]), kernels.fp2_mul_plain(a, b[:1]))
+    assert kernels.fp2_mul(a[:0], b[:0]).shape == (0, 2, fp.NL)
+    assert kernels.fp2_sq(a[:0]).shape == (0, 2, fp.NL)
 
 
 def test_kernels_reject_bad_operands(dev):
@@ -78,5 +94,9 @@ def test_verify_on_card_counts_launches(dev):
     kernels.reset_launches()
     assert backend.verify_signature_sets(sets) is True
     assert all(n > 0 for n in kernels.launches.values()), kernels.launches
+    for name, n in kernels.launches.items():
+        hist = kernels.lane_hist[name]
+        assert sum(hist.values()) == n
+        assert sum(k * v for k, v in hist.items()) == kernels.lanes[name] >= n
     bad = [sets[0], (sets[1][0], sets[1][1], m1)]
     assert backend.verify_signature_sets(bad) is False
