@@ -24,7 +24,10 @@ plain torch version on the card. Phases, in order; any failure raises:
    timed (device ms per launch, launches queued back to back behind a
    device sleep, CUDA events) with its plain version and its bound at 1
    lane, at the most frequent and at the largest lane count of the block
-   batch's valid verify, and at the shapes earlier versions timed;
+   batch's valid verify (K3 at every lane count either batch launched),
+   and at the shapes earlier versions timed; beside them the launch
+   floor, the device time per launch of a one-element in-place add
+   queued the same way;
 6. one more valid verify of each batch under torch.profiler: the device
    busy share, and each kernel's device ms per verify beside its lanes
    per verify and the bound summed over them.
@@ -74,10 +77,11 @@ LANE_BYTES = {"fp_mul_cols": 3 * 32 * 4, "fp2_mul": 3 * 64 * 4, "fp2_sq": 2 * 64
 # largest K2 launch of the block batch.
 CHECK_LANES = (1, 3, 5, 1170, 3474)
 # Timing shapes of --quick, which runs no batch: 1 lane, the most frequent
-# and the largest lane count of the block batch (seed 0). The full run
-# times at the counts its own block verify launched.
+# and the largest lane count of the block batch (seed 0), and for K3 every
+# count the gossip and block verifies launch. The full run times at the
+# counts its own verifies launched.
 QUICK_LANES = {"fp_mul_cols": (1, 192, 147456), "fp2_mul": (1, 18, 960, 3474),
-               "fp2_sq": (1, 96, 960)}
+               "fp2_sq": (1, 96, 195, 579, 960)}
 # The shapes earlier versions of this script timed (an Fp12 product's 81
 # Fp lanes at 65 Miller lanes; 27 Fp2 lanes at 193): the path does not
 # launch these counts; they are timed to compare with those times.
@@ -124,6 +128,18 @@ def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
                                f"than the {sleep_s:.4f} s device sleep")
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def launch_floor(dev, card: str) -> float:
+    """Print and return the device ms per launch of the smallest torch
+    kernel, a one-element in-place add, queued back to back as the kernels
+    are timed: the card's own cost of a launch, against which a kernel's
+    1-lane time reads."""
+    x = torch.zeros(1, dtype=torch.int32, device=dev)
+    ms = device_ms(lambda: x.add_(1))
+    log(f"launch floor: {ms:.4f} ms per launch (one-element in-place add, "
+        f"queued back to back) on {card}")
+    return ms
 
 
 def bound(name: str, lanes: int):
@@ -247,13 +263,16 @@ def lane_summary(label: str, hist: dict) -> None:
             f"(lanes: launches) {top}")
 
 
-def path_shapes(hist: dict) -> dict:
-    """1 lane, the most frequent lane count, the largest, and the earlier
-    versions' shape, for each kernel."""
+def path_shapes(ghist: dict, bhist: dict) -> dict:
+    """1 lane, the block verify's most frequent lane count and its largest,
+    and the earlier versions' shape, for each kernel; for K3, which the
+    path launches at few distinct counts, every count of both verifies."""
     out = {}
     for name in KERNELS:
-        h = hist[name]
-        out[name] = sorted({1, mode_of(hist, name), max(h), EARLIER_LANES[name]})
+        shapes = {1, mode_of(bhist, name), max(bhist[name]), EARLIER_LANES[name]}
+        if name == "fp2_sq":
+            shapes |= set(ghist[name]) | set(bhist[name])
+        out[name] = sorted(shapes)
     return out
 
 
@@ -451,9 +470,10 @@ def main() -> int:
     if args.time_only:
         shapes = {k: sorted({*QUICK_LANES[k], EARLIER_LANES[k]}) for k in KERNELS}
         timings = time_kernels(rng, dev, shapes, dict.fromkeys(KERNELS, 0))
+        floor_ms = launch_floor(dev, card)
         log(card)
         print(json.dumps({"root": args.time_only, "source": str(kernels.SOURCE),
-                          "timings": timings}), flush=True)
+                          "launch_floor_ms": floor_ms, "timings": timings}), flush=True)
         return 0
     log("phase 2 kernels vs plain versions")
     errs = check_kernels(rng, dev)
@@ -462,6 +482,7 @@ def main() -> int:
     if args.quick:
         log("kernel timings (device ms per launch, launches queued back to back)")
         time_kernels(rng, dev, QUICK_LANES, errs)
+        launch_floor(dev, card)
         sets, msgs, hs = gossip_sets(rng, 1000)
         sets = sets[:2]
         timed_verify(backend, sets, "quick verify (B=2)", True, reps=1)
@@ -505,7 +526,8 @@ def main() -> int:
 
     log("phase 5 kernel timings at the block batch's lane counts (device ms "
         "per launch, launches queued back to back)")
-    timings = time_kernels(rng, dev, path_shapes(bhist), errs)
+    timings = time_kernels(rng, dev, path_shapes(ghist, bhist), errs)
+    launch_floor(dev, card)
     # profiled after every timed run: a torch.profiler session slows the
     # launches that follow it (35-45% on an H100)
     log("phase 6 profiles")

@@ -23,6 +23,11 @@ else; ``lanes`` sums the lanes (Fp or Fp2 elements) of those launches and
 K1 reduces inside the kernel (the ``reduce`` flag), so ``fp.mul`` on the
 card is one launch; the raw-column mode exists to hold the kernel against
 ``mul_cols_int8`` column for column.
+
+Block shapes (the source's note says why): K1 is one warp per lane, four
+lanes to a block; K2 one lane per block of three warps, its three
+products at once; K3 one lane per block of two warps, c0 on warp 0 and
+c1 on warp 1 with no block barrier between them.
 """
 
 from __future__ import annotations

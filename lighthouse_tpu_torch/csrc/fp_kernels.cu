@@ -18,8 +18,9 @@
 //
 // What bounds them on this card. The verify path launches them on few
 // lanes: from 1 to 3,474 per launch for almost every launch (a mean of
-// 44-457 Fp lanes for K1 and 216-899 Fp2 lanes for K2 per verify), with a
-// handful of K1 launches up to 147,456 lanes from pubkey aggregation.
+// 44-457 Fp lanes for K1, 216-899 Fp2 lanes for K2 and 110-899 for K3
+// per verify), with a handful of K1 launches up to 147,456 lanes from
+// pubkey aggregation.
 // Such a launch is one wave on 132 SMs, so neither HBM (384 bytes per K1
 // lane) nor the int32 pipes (2,240 multiply-adds per K1 lane) bound it:
 // its time is the dependent chain of ONE lane's product and reduction.
@@ -41,9 +42,19 @@
 //   run the two SAT-based combines. One lane per block keeps the small
 //   launches spread over the SMs and the resident warps at their
 //   register limit for the large ones.
-// * K1 and K3 keep one warp per lane (thread t owns columns t, t+32 and
-//   t+64), four lanes per block; K3's two products still run in series
-//   (its own redesign waits).
+// * K3 runs its two products at once: one lane is a block of two warps.
+//   With one warp per lane its time was a launch plus two product chains
+//   in series (4.0 us at 1 lane on an H100 against K2's 3.0 us). Its two
+//   output halves are independent (c0 needs only t0, c1 only t1), so
+//   warp 0 reduces a0+a1 and a0-a1 (two independent Add/Sub plans, two
+//   carry-folds each, no scratch), multiplies them and writes c0; warp 1
+//   multiplies a0 a1, doubles and writes c1. Each warp has its own
+//   scratch and there is no block barrier: a lane costs one product
+//   chain plus the short operand reductions, and the launch bounds it
+//   (2.8 us at 1 lane against 2.1 us for a one-element torch add, both
+//   queued back to back on an H100).
+// * K1 keeps one warp per lane (thread t owns columns t, t+32 and t+64),
+//   four lanes per block: one product, nothing to split.
 //
 // The arithmetic is the plan's own, step by step, in exact uint32 (every
 // intermediate < 2^31), so the limbs equal the plain versions'.
@@ -53,8 +64,8 @@
 // 1/16 full, and 1-3,474 lanes per launch have no throughput to win; TMA
 // for a 256-byte operand adds a barrier round trip to the latency the
 // design removes. The one matrix every lane shares is FOLD (the wide fold
-// is hi[n, 33] x FOLD[33, 32]): a tensor-core fold for the large
-// aggregation launches is later work.
+// is hi[n, 33] x FOLD[33, 32]): whether a tensor-core fold pays for the
+// large aggregation launches is an open question.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -80,7 +91,7 @@ constexpr int kW = 12;
 constexpr int kMaxLimbs = 96;  // a warp holds limbs t, t+32, t+64 of a lane
 constexpr uint32_t kMask = 0xFFFu;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kLanesPerBlock = 4;  // K1 and K3: one warp per lane
+constexpr int kLanesPerBlock = 4;  // K1: one warp per lane
 constexpr int kHiWords = (kFoldRows + 3) / 4 * 4;
 
 // One lane's limb vector spread over a warp: thread t holds limbs t, t+32,
@@ -322,28 +333,33 @@ __global__ void __launch_bounds__(3 * 32)
       static_cast<int32_t>(c);
 }
 
-__global__ void __launch_bounds__(kLanesPerBlock * 32)
-    fp2_sq_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-                  int n) {
-  __shared__ WarpScratch sm[kLanesPerBlock];
+// One lane per block of two warps: warp 0 computes c0 = (a0+a1)(a0-a1)
+// with the operand sum and difference reduced first (the Add and Sub
+// plans), warp 1 c1 = 2 a0 a1 (the Add plan on t1 + t1). The two halves
+// share nothing, so no block barrier.
+__global__ void __launch_bounds__(2 * 32)
+    fp2_sq_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out) {
+  __shared__ WarpScratch sm[2];
   const int t = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const long long lane = static_cast<long long>(blockIdx.x) * kLanesPerBlock + w;
-  if (lane >= n) return;  // warp-uniform
-  const int32_t* xl = x + lane * 2 * kNL;
+  const int32_t* xl = x + static_cast<long long>(blockIdx.x) * 2 * kNL;
   const uint32_t a0 = static_cast<uint32_t>(xl[t]);
   const uint32_t a1 = static_cast<uint32_t>(xl[kNL + t]);
-  const uint32_t sat = __ldg(&kSat[t]);
   Fold f;
   f.load(t);
   WarpScratch& s = sm[w];
-  const uint32_t sum = reduce32<PlanAdd>(a0 + a1, f, s.hi, t);
-  const uint32_t dif = reduce32<PlanSub>(a0 + (sat - a1), f, s.hi, t);
-  const uint32_t t0 = mul_reduce(sum, dif, s, f, t);
-  const uint32_t t1 = mul_reduce(a0, a1, s, f, t);
-  const uint32_t c1 = reduce32<PlanAdd>(t1 + t1, f, s.hi, t);
-  out[lane * 2 * kNL + t] = static_cast<int32_t>(t0);
-  out[lane * 2 * kNL + kNL + t] = static_cast<int32_t>(c1);
+  uint32_t c;
+  if (w == 0) {  // warp-uniform
+    const uint32_t sat = __ldg(&kSat[t]);
+    const uint32_t sum = reduce32<PlanAdd>(a0 + a1, f, s.hi, t);
+    const uint32_t dif = reduce32<PlanSub>(a0 + (sat - a1), f, s.hi, t);
+    c = mul_reduce(sum, dif, s, f, t);
+  } else {
+    const uint32_t t1 = mul_reduce(a0, a1, s, f, t);
+    c = reduce32<PlanAdd>(t1 + t1, f, s.hi, t);
+  }
+  out[static_cast<long long>(blockIdx.x) * 2 * kNL + w * kNL + t] =
+      static_cast<int32_t>(c);
 }
 
 int blocks_for(int n) { return (n + kLanesPerBlock - 1) / kLanesPerBlock; }
@@ -376,8 +392,7 @@ extern "C" int lh_fp2_mul(const void* x, const void* y, void* out, int n,
 
 extern "C" int lh_fp2_sq(const void* x, void* out, int n, void* stream) {
   if (n <= 0) return 0;
-  fp2_sq_kernel<<<blocks_for(n), kLanesPerBlock * 32, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), n);
+  fp2_sq_kernel<<<n, 2 * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,8 @@ the JAX package, so it also runs on a machine without them:
 Tolerances: K1 raw columns and reduced limbs equal to the plain versions
 (exact integers, same reduction plan); K2/K3 canonical-equal with limbs
 in [0, 8191]; verdicts as expected. Lane counts 1 to 3474 cover one lane,
-ragged blocks and the largest K2 launch of the verify path.
+ragged blocks and the largest K2 launch of the verify path; K3 is also
+held limb for limb at every lane count the verify path launches it with.
 """
 
 import numpy as np
@@ -28,9 +29,11 @@ def dev():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-# 1 lane, ragged blocks of K1/K3's four lanes, and the block batch's
+# 1 lane, ragged blocks of K1's four lanes, and the block batch's
 # largest K2 launch
 LANES = (1, 3, 5, 1170, 3474)
+# K3's lane counts on the verify path: gossip 96 and 195, block 960 and 579
+K3_PATH_LANES = (96, 195, 579, 960)
 
 
 def _limbs(rng, *shape):
@@ -70,6 +73,13 @@ def test_k2_k3_match_plain(dev, lanes):
     _canonical_equal(kernels.fp2_mul(a, b[:1]), kernels.fp2_mul_plain(a, b[:1]))
     assert kernels.fp2_mul(a[:0], b[:0]).shape == (0, 2, fp.NL)
     assert kernels.fp2_sq(a[:0]).shape == (0, 2, fp.NL)
+
+
+@pytest.mark.parametrize("lanes", K3_PATH_LANES)
+def test_k3_matches_plain_at_path_lanes(dev, lanes):
+    rng = np.random.default_rng(13 + lanes)
+    a = torch.from_numpy(_limbs(rng, lanes, 2)).to(dev)
+    assert torch.equal(kernels.fp2_sq(a), kernels.fp2_sq_plain(a))
 
 
 def test_kernels_reject_bad_operands(dev):

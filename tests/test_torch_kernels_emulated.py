@@ -13,8 +13,9 @@ kernels' arithmetic, indexing and synchronisation on every CPU run; what
 ``nvcc`` accepts and how fast the card runs it are the card tests' part
 (``test_torch_kernels_cuda.py``). Skipped where there is no ``g++``.
 
-Tolerances, as on the card: K1 raw columns and reduced limbs equal to
-the plain versions; K2/K3 canonical-equal with limbs in [0, 8191].
+Tolerances, as on the card: K1 raw columns and reduced limbs and K3's
+limbs equal to the plain versions; K2 canonical-equal with limbs in
+[0, 8191].
 """
 
 import ctypes
@@ -30,8 +31,11 @@ import torch
 from lighthouse_tpu_torch.crypto.device import fp, kernels
 
 EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
-# 1 lane and ragged blocks of K1/K3's four lanes
+# 1 lane and ragged blocks of K1's four lanes
 LANES = (1, 3, 5, 13)
+# K3 (one lane per block of two warps) also at the gossip verify's most
+# frequent K3 launch
+K3_LANES = (*LANES, 96)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -96,14 +100,22 @@ def test_k1_source_matches_plain(lib, lanes):
 
 
 @pytest.mark.parametrize("lanes", LANES)
-def test_k2_k3_source_match_plain(lib, lanes):
+def test_k2_source_matches_plain(lib, lanes):
     rng = np.random.default_rng(22 + lanes)
     a, b = _limbs(rng, lanes, 2), _limbs(rng, lanes, 2)
-    k2, k3 = np.zeros_like(a), np.zeros_like(a)
+    k2 = np.zeros_like(a)
     assert lib.lh_fp2_mul(_ptr(a), _ptr(b), _ptr(k2), lanes, None) == 0
+    got = torch.from_numpy(k2)
+    assert int(got.min()) >= 0 and int(got.max()) <= fp.LIMB_MAX
+    want = kernels.fp2_mul_plain(torch.from_numpy(a), torch.from_numpy(b))
+    assert torch.equal(fp.canonical(got), fp.canonical(want))
+
+
+@pytest.mark.parametrize("lanes", K3_LANES)
+def test_k3_source_matches_plain(lib, lanes):
+    rng = np.random.default_rng(22 + lanes)
+    a = _limbs(rng, lanes, 2)
+    k3 = np.zeros_like(a)
     assert lib.lh_fp2_sq(_ptr(a), _ptr(k3), lanes, None) == 0
-    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
-    for got, want in ((k2, kernels.fp2_mul_plain(ta, tb)), (k3, kernels.fp2_sq_plain(ta))):
-        got = torch.from_numpy(got)
-        assert int(got.min()) >= 0 and int(got.max()) <= fp.LIMB_MAX
-        assert torch.equal(fp.canonical(got), fp.canonical(want))
+    # limb for limb, both halves (stronger than K2's canonical equality)
+    assert torch.equal(torch.from_numpy(k3), kernels.fp2_sq_plain(torch.from_numpy(a)))
