@@ -1,8 +1,9 @@
 """Chip smoke check of lighthouse_tpu_torch on one NVIDIA GPU (H100).
 
 Drives the port's main path, BLS batch verification of signature sets,
-through the entry point a node calls (``CudaBackend.verify_signature_sets``),
-at mainnet shapes, and holds each of its three CUDA kernels against its
+through the entry point a node calls (``CudaBackend.verify_signature_sets``)
+on its raw, gathered (device key table) and collapsed paths, at mainnet
+shapes, and holds each of its three CUDA kernels against its
 plain torch version on the card. Phases, in order; any failure raises:
 
 1. device: require CUDA, print the card's name and power limit, build the
@@ -20,7 +21,25 @@ plain torch version on the card. Phases, in order; any failure raises:
 4. block batch: 128 aggregate attestations with 180..229 signers each plus
    the proposal and RANDAO sets (B = 130 on the 192 rung, K <= 256,
    M = 130): valid -> True, one non-subgroup signature -> False;
-5. kernel timings where the path runs them: each kernel checked again and
+5. key table: a registry of 2^19 validators (secrets 1..N, built in
+   Jacobian coordinates with one batch inversion), the first half synced
+   at startup, the rest delta-admitted, which grows the table to the
+   next rung by a device copy; each sync's seconds, upload bytes and
+   status;
+6. gathered verifies: gossip and block batches redrawn from the
+   registry's own points, verified on the gathered path (collapse held
+   off): valid -> True, non-subgroup -> False; a block batch with one
+   foreign key falls back to the raw path and still verifies; the
+   gathered pubkey planes equal the raw planes on live slots;
+7. collapse: a fresh block batch seen three times with the table's
+   default ``agg_min_repeats`` (2): the second sighting pays the host
+   sums (seconds printed) and ships K = 1, the third hits; a poisoned
+   signature over the collapsed rows -> False;
+8. msm: ``device_msm_g1`` at N = 512 with random u64 scalars and
+   ``device_sum_g2`` at N = 128 equal to the host fold; one committee's
+   all-ones MSM equal to the table's host sum; a committee inserted with
+   ``insert_precomputed`` ships K = 1 at its first sighting -> True;
+9. kernel timings where the path runs them: each kernel checked again and
    timed (device ms per launch, launches queued back to back behind a
    device sleep, CUDA events) with its plain version and its bound at 1
    lane, at the most frequent and at the largest lane count of the block
@@ -28,11 +47,14 @@ plain torch version on the card. Phases, in order; any failure raises:
    and at the shapes earlier versions timed; beside them the launch
    floor, the device time per launch of a one-element in-place add
    queued the same way;
-6. one more valid verify of each batch under torch.profiler: the device
-   busy share, and each kernel's device ms per verify beside its lanes
-   per verify and the bound summed over them.
+10. one more valid verify of each raw batch, of the gathered block batch
+   and of the collapsed block batch under torch.profiler: the device busy
+   share, and for the raw batches each kernel's device ms per verify
+   beside its lanes per verify and the bound summed over them.
 
-Each batch is verified three times (median wall printed).
+Each batch is verified three times (median wall printed); every verify
+prints its path, padded shape, host resolve and pack seconds and the
+bytes it copied to the card.
 
 The counts of kernel launches (and the lanes they carry) are set to 0
 just before each verify and read just after it. The kernels line reports
@@ -41,7 +63,7 @@ from ``--seed``; the host signer (pure Python) is independent of the
 device hash-to-curve.
 
     python3 chip_smoke.py            # the full check (one card)
-    python3 chip_smoke.py --quick    # build, kernel checks and timings, a tiny verify
+    python3 chip_smoke.py --quick    # build, kernel checks and timings, tiny verifies and MSM
     python3 chip_smoke.py --time-only DIR   # time the kernels of the checkout at DIR
 """
 
@@ -73,6 +95,13 @@ PROFILE_NAME = {"fp_mul_cols": "::fp_mul_kernel", "fp2_mul": "::fp2_mul_kernel",
                 "fp2_sq": "::fp2_sq_kernel"}
 # bytes one lane reads and writes: two (one) operands and the result
 LANE_BYTES = {"fp_mul_cols": 3 * 32 * 4, "fp2_mul": 3 * 64 * 4, "fp2_sq": 2 * 64 * 4}
+# The key table's registry: 2^19 validators, the order of mainnet's
+# registry when the reference's v3.3.0 shipped.
+REGISTRY_SIZE = 1 << 19
+# The MSM phase's point counts: the top MSM rung (a mainnet committee) for
+# G1 with random u64 scalars, and 128 points for the G2 sum.
+MSM_N = 512
+G2_N = 128
 # Lane counts every kernel is checked at: 1, ragged blocks, and the
 # largest K2 launch of the block batch.
 CHECK_LANES = (1, 3, 5, 1170, 3474)
@@ -263,15 +292,26 @@ def lane_summary(label: str, hist: dict) -> None:
             f"(lanes: launches) {top}")
 
 
-def path_shapes(ghist: dict, bhist: dict) -> dict:
-    """1 lane, the block verify's most frequent lane count and its largest,
-    and the earlier versions' shape, for each kernel; for K3, which the
-    path launches at few distinct counts, every count of both verifies."""
+# A path that launches a kernel at no more than this many distinct lane
+# counts has each of them checked and timed (K3 in the verifies, K2 in the
+# G2 sum); otherwise its most frequent count and its largest.
+FEW_COUNTS = 8
+
+
+def path_shapes(hists: dict) -> dict:
+    """The lane counts each kernel is checked and timed at: 1 lane, the
+    earlier versions' shape, and for every path of this run that launched
+    the kernel (``hists``: {path: {kernel: {lanes: launches}}}) its most
+    frequent lane count and its largest, or all of its counts when there
+    are few."""
     out = {}
     for name in KERNELS:
-        shapes = {1, mode_of(bhist, name), max(bhist[name]), EARLIER_LANES[name]}
-        if name == "fp2_sq":
-            shapes |= set(ghist[name]) | set(bhist[name])
+        shapes = {1, EARLIER_LANES[name]}
+        for hist in hists.values():
+            h = hist.get(name)
+            if not h:
+                continue
+            shapes |= set(h) if len(h) <= FEW_COUNTS else {mode_of(hist, name), max(h)}
         out[name] = sorted(shapes)
     return out
 
@@ -279,6 +319,15 @@ def path_shapes(ghist: dict, bhist: dict) -> dict:
 def mode_of(hist: dict, name: str) -> int:
     """The most frequent lane count of ``name`` (the larger one on a tie)."""
     return max(hist[name].items(), key=lambda kv: (kv[1], kv[0]))[0]
+
+
+def print_shapes(shapes: dict, hists: dict) -> None:
+    """Which paths launched each checked lane count."""
+    for name in KERNELS:
+        by = {n: [p for p, h in hists.items() if n in h.get(name, {})] for n in shapes[name]}
+        log(f"  {name} lane counts: " + "; ".join(
+            f"{n} ({', '.join(ps) or ('checked always' if n == 1 else 'earlier shape')})"
+            for n, ps in by.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -298,13 +347,63 @@ def make_keys(s0: int, n: int):
     return pks
 
 
-def gossip_sets(rng, s0: int):
+def registry_points(n: int):
+    """[1]G, ..., [n]G (the keys of secrets 1..n) as cpu G1Points, built in
+    Jacobian coordinates, P_{i+1} = P_i + G, with one Montgomery batch
+    inversion for the affine conversion: an affine addition per key would
+    pay one field inversion each."""
+    from lighthouse_tpu_torch.crypto.cpu.curve import G1Point
+    from lighthouse_tpu_torch.crypto.cpu.fields import Fq
+    from lighthouse_tpu_torch.crypto.params import G1_X, G1_Y, P
+
+    gx, gy = G1_X, G1_Y
+    # P_2 = 2G in affine, then mixed additions of G (P_i != +-G for i >= 2)
+    lam = 3 * gx * gx * pow(2 * gy, P - 2, P) % P
+    x2 = (lam * lam - 2 * gx) % P
+    X, Y, Z = x2, (lam * (gx - x2) - gy) % P, 1
+    xs, ys, zs = [gx], [gy], [1]
+    for _ in range(1, n):
+        xs.append(X)
+        ys.append(Y)
+        zs.append(Z)
+        zz = Z * Z % P
+        h = (gx * zz - X) % P
+        r = (gy * zz * Z - Y) % P
+        hh = h * h % P
+        hhh = h * hh % P
+        v = X * hh % P
+        X = (r * r - hhh - 2 * v) % P
+        Y = (r * (v - X) - Y * hhh) % P
+        Z = Z * h % P
+    prefix, acc = [], 1
+    for z in zs:
+        prefix.append(acc)
+        acc = acc * z % P
+    inv = pow(acc, P - 2, P)
+    out = [None] * n
+    for i in range(n - 1, -1, -1):
+        zi = inv * prefix[i] % P
+        inv = inv * zs[i] % P
+        zi2 = zi * zi % P
+        out[i] = G1Point(Fq(xs[i] * zi2), Fq(ys[i] * zi2 * zi))
+    return out
+
+
+def keys_for(s0: int, n: int, registry=None):
+    """The pubkeys of secrets s0 .. s0+n-1: the registry's own point
+    objects (secret i is registry row i-1) when one is given."""
+    if registry is None:
+        return make_keys(s0, n)
+    return registry[s0 - 1: s0 - 1 + n]
+
+
+def gossip_sets(rng, s0: int, registry=None):
     """64 unaggregated attestations, 8 committees of 8 in one slot."""
     from lighthouse_tpu_torch.crypto.bls import Signature
     from lighthouse_tpu_torch.crypto.cpu.hash_to_curve import hash_to_g2
     from lighthouse_tpu_torch.crypto.params import DST, R
 
-    pks = make_keys(s0, 64)
+    pks = keys_for(s0, 64, registry)
     msgs = [rng.bytes(32) for _ in range(8)]
     hs = [hash_to_g2(m, DST) for m in msgs]
     sets = []
@@ -317,20 +416,26 @@ def gossip_sets(rng, s0: int):
     return sets, msgs, hs
 
 
-def block_sets(rng, s0: int):
-    """128 aggregates (K in [180, 229]) + proposal + RANDAO (K = 1)."""
+def committee_set(rng, s0: int, pks):
+    """One set signed by the secrets s0 .. s0+k-1 of ``pks`` over a random
+    message: the signature of their aggregate secret."""
     from lighthouse_tpu_torch.crypto.bls import Signature
     from lighthouse_tpu_torch.crypto.cpu.hash_to_curve import hash_to_g2
     from lighthouse_tpu_torch.crypto.params import DST, R
 
+    k = len(pks)
+    m = rng.bytes(32)
+    sig = hash_to_g2(m, DST).mul((k * s0 + k * (k - 1) // 2) % R)
+    return Signature.deserialize(sig.compress()), list(pks), m
+
+
+def block_sets(rng, s0: int, registry=None):
+    """128 aggregates (K in [180, 229]) + proposal + RANDAO (K = 1)."""
     ks = [int(k) for k in rng.integers(180, 230, size=128)] + [1, 1]
-    pks = make_keys(s0, sum(ks))
+    pks = keys_for(s0, sum(ks), registry)
     sets, start = [], 0
     for k in ks:
-        m = rng.bytes(32)
-        sk_sum = (k * (s0 + start) + k * (k - 1) // 2) % R
-        sig = hash_to_g2(m, DST).mul(sk_sum)
-        sets.append((Signature.deserialize(sig.compress()), pks[start:start + k], m))
+        sets.append(committee_set(rng, s0 + start, pks[start:start + k]))
         start += k
     return sets
 
@@ -352,11 +457,22 @@ def non_subgroup_signature(rng):
             return Signature.deserialize(pt.compress())
 
 
-def timed_verify(backend, sets, label, expect, reps: int = 3):
+def batch_line(backend) -> str:
+    """The backend's description of its latest batch, for the log."""
+    lb = backend.last_batch
+    return (f"path {lb['path']}, B={lb['b']} K={lb['k']} M={lb['m']}, "
+            f"{lb['collapsed']} of {lb['n_sets']} sets collapsed, host resolve "
+            f"{lb['resolve_s']:.4f} s, host pack {lb['pack_s']:.4f} s, H2D "
+            f"{lb['h2d_bytes']} B of which pubkey planes {lb['pubkey_bytes']} B")
+
+
+def timed_verify(backend, sets, label, expect, reps: int = 3, path=None):
     """``reps`` verifies of one batch, each with the launch counts set to 0
     just before it and read just after it; prints every wall time and the
-    median. Returns (median wall, launch counts and lane histograms
-    {kernel: {lanes: launches}} of the last run)."""
+    median, the batch's path and shape, and its host and copy costs.
+    ``path``, when given, is the path every verify must take. Returns
+    (median wall, launch counts and lane histograms {kernel: {lanes:
+    launches}} of the last run)."""
     from lighthouse_tpu_torch.crypto.device import kernels
 
     walls, counts, hist = [], None, None
@@ -369,6 +485,9 @@ def timed_verify(backend, sets, label, expect, reps: int = 3):
         walls.append(time.perf_counter() - t0)
         if verdict is not expect:
             raise AssertionError(f"{label}: verdict {verdict}, expected {expect}")
+        if path is not None and backend.last_batch["path"] != path:
+            raise AssertionError(f"{label}: path {backend.last_batch['path']}, "
+                                 f"expected {path}")
         if counts is not None and counts != kernels.launches:
             raise AssertionError(f"{label}: launch counts differ between runs")
         counts = dict(kernels.launches)
@@ -378,7 +497,9 @@ def timed_verify(backend, sets, label, expect, reps: int = 3):
         raise AssertionError(f"{label}: kernels never launched: {missing}")
     wall = statistics.median(walls)
     log(f"{label}: verdict {expect} x{reps}; {wall:.3f} s per verify (median of "
-        f"{', '.join(f'{w:.3f}' for w in walls)}); launches {json.dumps(counts)}")
+        f"{', '.join(f'{w:.3f}' for w in walls)}); launches {json.dumps(counts)}; "
+        f"lanes {json.dumps(dict(kernels.lanes))}")
+    log(f"  {label}: {batch_line(backend)}")
     return wall, counts, hist
 
 
@@ -436,6 +557,278 @@ def profile_verify(backend, sets, label, wall):
             for name in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# The key table, the gathered and collapsed paths, the MSM
+# ---------------------------------------------------------------------------
+
+class held_collapse:
+    """Raise the table's ``agg_min_repeats`` above any sighting count for a
+    block of verifies, so every set ships its K indices (the gathered path
+    without the aggregate collapse)."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def __enter__(self):
+        self.prev = self.table.agg_min_repeats
+        self.table.agg_min_repeats = 1 << 30
+
+    def __exit__(self, *exc):
+        self.table.agg_min_repeats = self.prev
+
+
+def key_table_phase(registry, dev):
+    """Sync the first half of the registry at startup, then delta-admit the
+    rest, which grows the table to the next rung by a device copy. Prints
+    each sync's seconds, upload bytes and status; holds rows at both ends
+    of each half against the host pack. Returns the table."""
+    from types import SimpleNamespace
+
+    from lighthouse_tpu_torch.crypto.bls import PublicKey
+    from lighthouse_tpu_torch.crypto.device import curve, key_table
+
+    n, half = len(registry), len(registry) // 2
+    cache = SimpleNamespace(pubkeys=[PublicKey(p) for p in registry[:half]])
+    table = key_table.DeviceKeyTable(cache, device=dev)
+    for reason in ("startup", "delta"):
+        if reason == "delta":
+            cache.pubkeys.extend(PublicKey(p) for p in registry[half:])
+        t0 = time.perf_counter()
+        added = table.sync(reason=reason)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = table.status()
+        log(f"key table {reason} sync: {added} rows in {dt:.3f} s, upload "
+            f"{st['upload_bytes'][reason]} B, capacity {st['validator_capacity']} rows "
+            f"({st['validator_capacity'] * key_table.G1_ROW_BYTES} B of validator rows "
+            f"on the card, {st['device_bytes']} B with the aggregate region)")
+        log(f"  status {json.dumps(st)}")
+    if table.status()["validator_capacity"] != key_table.table_capacity(n):
+        raise AssertionError("key table: capacity is not the registry's rung")
+    rows = [0, half - 1, half, n - 1]
+    tdev, _ = table.device_arrays()
+    want = curve.pack_g1([registry[i] for i in rows])[0]
+    if tdev.device != dev or not np.array_equal(tdev[rows].cpu().numpy(), want):
+        raise AssertionError("key table: device rows differ from the host pack")
+    log(f"key table rows {rows} equal to the host pack, on {tdev.device}")
+    return table
+
+
+def gathered_phase(rng, registry, table, backend, dev):
+    """Gossip and block batches drawn from the registry's own points on the
+    gathered path (collapse held off), a poisoned one, one with a foreign
+    key (raw fallback), and the gathered planes against the raw planes on
+    the card. Returns (block sets, median wall of the block verify, lane
+    histograms of the valid verifies by path)."""
+    from lighthouse_tpu_torch.crypto.cpu.curve import G1Point
+    from lighthouse_tpu_torch.crypto.cpu.fields import Fq
+    from lighthouse_tpu_torch.crypto.device import bls as dbls
+
+    t0 = time.perf_counter()
+    gsets, _msgs, _hs = gossip_sets(rng, 1000, registry)
+    bsets = block_sets(rng, 100_000, registry)
+    log(f"host signing from the registry: {time.perf_counter() - t0:.2f} s")
+    walls, hists = {}, {}
+    with held_collapse(table):
+        for label, sets in (("gossip", gsets), ("block", bsets)):
+            wall, _counts, hist = timed_verify(
+                backend, sets, f"gathered {label} valid", True, path="raw_gather")
+            walls[label] = wall
+            hists[f"gathered {label}"] = hist
+            resolved, tdev, tagg, _ = table.resolve_sets(sets)
+            idx = dbls.pack_signature_sets_indexed(sets, resolved, device=dev)[0]
+            gather_ms = device_ms(lambda: dbls._gather_fn(tdev, tagg, idx))
+            log(f"  gathered {label}: gather {gather_ms:.4f} device ms at "
+                f"{tuple(idx.shape)} indices")
+            lane_summary(f"gathered {label} valid", hist)
+        poisoned = list(bsets)
+        poisoned[5] = (non_subgroup_signature(rng), bsets[5][1], bsets[5][2])
+        timed_verify(backend, poisoned, "gathered block non-subgroup signature", False,
+                     path="raw_gather")
+        foreign = list(bsets)
+        sig, pks, m = foreign[1]
+        p = pks[0]
+        foreign[1] = (sig, [G1Point(Fq(p.x.n), Fq(p.y.n))] + pks[1:], m)
+        raw0 = table.status()["sets"]["raw"]
+        timed_verify(backend, foreign, "block with one foreign key", True,
+                     path="raw_staged")
+        raw = table.status()["sets"]["raw"] - raw0
+        if raw <= 0:
+            raise AssertionError("foreign key: the raw fallback was not counted")
+        log(f"  foreign key: count_raw +{raw} sets (table sets {table.status()['sets']})")
+
+        # the gathered pubkey planes against the raw planes, on the card
+        resolved, tdev, tagg, _ = table.resolve_sets(bsets)
+        words = seeded_words(7)
+        idx_args = dbls.pack_signature_sets_indexed(bsets, resolved, rand_words=words(),
+                                                    device=dev)
+        raw_args = dbls.pack_signature_sets_raw(bsets, rand_words=words(), device=dev)
+        gathered = dbls._gather_fn(tdev, tagg, idx_args[0])
+        mask = idx_args[1]
+        if not (torch.equal(mask, raw_args[1])
+                and torch.equal(gathered[mask], raw_args[0][mask])
+                and all(torch.equal(a, b) for a, b in zip(idx_args[2:], raw_args[2:]))):
+            raise AssertionError("gathered planes differ from the raw planes")
+        log(f"gathered pubkey planes equal to the raw planes on {int(mask.sum())} live "
+            f"slots, on {gathered.device}; the other six planes equal")
+    return bsets, walls["block"], hists
+
+
+def seeded_words(seed: int):
+    """A factory of seeded stand-ins for the packers' random words: each
+    call gives a fresh generator from the same seed."""
+    def make():
+        rng = np.random.default_rng(seed)
+
+        def words():
+            r = int(rng.integers(1, 2 ** 63, dtype=np.int64))
+            return (r >> 32) & 0xFFFFFFFF, r & 0xFFFFFFFF
+        return words
+    return make
+
+
+def collapse_phase(rng, registry, table, backend):
+    """A fresh block batch verified three times with the default
+    ``agg_min_repeats`` (2): the second sighting pays the host sums and
+    ships K = 1, the third hits the cached rows. Then a poisoned signature
+    over the collapsed rows. Returns (sets, median wall of three verifies
+    after the third sighting, their lane histograms)."""
+    from lighthouse_tpu_torch.crypto.device import kernels
+
+    t0 = time.perf_counter()
+    csets = block_sets(rng, 200_000, registry)
+    log(f"host signing: {time.perf_counter() - t0:.2f} s; {len(csets)} sets from "
+        f"registry rows 199,999 on")
+    n_comm = sum(1 for _, pks, _ in csets if len(pks) > 1)
+    n_adds = sum(len(pks) - 1 for _, pks, _ in csets if len(pks) > 1)
+    for sighting in (1, 2, 3):
+        sum0 = table.status()["aggregate_sum_seconds"]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        verdict = backend.verify_signature_sets(csets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lb = backend.last_batch
+        k1_max = max(kernels.lane_hist["fp_mul_cols"])
+        log(f"collapse sighting {sighting}: verdict {verdict}; K rung {lb['k']}; "
+            f"{lb['collapsed']} of {lb['n_sets']} sets collapsed; K1 lane maximum "
+            f"{k1_max}; {wall:.3f} s; launches {json.dumps(dict(kernels.launches))}")
+        log(f"  collapse sighting {sighting}: {batch_line(backend)}")
+        if verdict is not True or lb["path"] != "raw_gather":
+            raise AssertionError(f"collapse sighting {sighting}: {verdict} on {lb['path']}")
+        if sighting > 1:
+            if lb["k"] != 1 or lb["collapsed"] != n_comm:
+                raise AssertionError(f"collapse sighting {sighting}: not collapsed")
+        if sighting == 2:
+            log(f"collapse host sums (second sighting): "
+                f"{table.status()['aggregate_sum_seconds'] - sum0:.3f} s for {n_adds} "
+                f"affine additions over {n_comm} committees")
+    # the steady state: every committee hits its cached row
+    wall, _counts, hist = timed_verify(backend, csets, "collapsed block valid", True,
+                                       path="raw_gather")
+    lane_summary("collapsed block valid", hist)
+    poisoned = list(csets)
+    poisoned[5] = (non_subgroup_signature(rng), csets[5][1], csets[5][2])
+    timed_verify(backend, poisoned, "collapsed block non-subgroup signature", False,
+                 path="raw_gather", reps=1)
+    if backend.last_batch["collapsed"] != n_comm:
+        raise AssertionError("poisoned collapsed batch: rows were not collapsed")
+    st = table.status()
+    log(f"  table after collapse: {st['aggregates_resident']} aggregate rows, "
+        f"{st['aggregate_inserts']} inserts, {st['aggregate_hits']} hits, "
+        f"upload {st['upload_bytes']['aggregate']} B")
+    return csets, wall, hist
+
+
+def msm_phase(rng, registry, table, backend, dev, csets):
+    """The G1 MSM at N = 512 and the G2 sum at N = 128 against the host
+    fold; one committee's all-ones MSM against the table's host sum; and a
+    committee inserted ahead of time whose first sighting ships K = 1.
+    Returns the lane histograms of the three device sums by path."""
+    from lighthouse_tpu_torch.crypto.cpu.curve import G1Point, G2Point, g2_generator
+    from lighthouse_tpu_torch.crypto.device import bls as dbls, curve, kernels, msm
+
+    hists = {}
+
+    def counted(label, fn, path_kernels):
+        """Run one device sum with the counts set to 0 just before it and
+        read just after; every kernel of ``path_kernels`` must launch."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"{label}: {dt:.3f} s on the card; launches {json.dumps(dict(kernels.launches))}")
+        missing = [k for k in path_kernels if kernels.launches[k] == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: {missing}")
+        hists[label] = {k: dict(h) for k, h in kernels.lane_hist.items()}
+        lane_summary(label, hists[label])
+        return out
+
+    pts = registry[:MSM_N]
+    sc = [int(s) for s in rng.integers(0, 2 ** 64, size=MSM_N, dtype=np.uint64)]
+    sc[0] = (1 << 64) - 1
+    got = counted(f"msm g1 N={MSM_N}",
+                  lambda: dbls.device_msm_g1(pts, sc, pad_n=MSM_N, device=dev),
+                  ["fp_mul_cols"])
+    t0 = time.perf_counter()
+    want = G1Point.infinity()
+    for p, s in zip(pts, sc):
+        want = want + p.mul(s)
+    log(f"msm g1 host fold: {time.perf_counter() - t0:.3f} s")
+    if got.compress() != want.compress():
+        raise AssertionError("msm g1: differs from the host fold")
+    log(f"msm g1 N={MSM_N} (random u64 scalars, one all-ones): equal to the host fold")
+
+    g2 = g2_generator()
+    q = g2.mul(int(rng.integers(1, 2 ** 62)))
+    pts2 = []
+    for _ in range(G2_N):
+        pts2.append(q)
+        q = q + g2
+    got2 = counted(f"sum g2 N={G2_N}",
+                   lambda: dbls.device_sum_g2(pts2, pad_n=G2_N, device=dev),
+                   ["fp_mul_cols", "fp2_mul"])
+    want2 = G2Point.infinity()
+    for p in pts2:
+        want2 = want2 + p
+    if got2.compress() != want2.compress():
+        raise AssertionError("sum g2: differs from the host fold")
+    log(f"sum g2 N={G2_N}: equal to the host fold")
+
+    # one committee of the collapsed batch: the duty lookahead's all-ones MSM
+    # against the row the table summed on the host
+    _sig, pks, _m = csets[0]
+    rung = msm.msm_rung(len(pks))
+    dsum = counted(f"msm g1 committee K={len(pks)} at rung {rung}",
+                   lambda: dbls.device_msm_g1(pks, [1] * len(pks), pad_n=rung, device=dev),
+                   ["fp_mul_cols"])
+    resolved, tdev, tagg, collapsed = table.resolve_sets([csets[0]])
+    if collapsed != 1:
+        raise AssertionError("committee: not cached in the table")
+    row = tagg[resolved[0][0] - tdev.shape[0]].cpu().numpy()
+    if not np.array_equal(row, curve.pack_g1([dsum])[0][0]):
+        raise AssertionError("committee: device MSM differs from the table's host sum")
+    log(f"msm g1 committee K={len(pks)}: equal to the table's host-summed row")
+
+    # a committee never seen: inserted ahead of time, first sighting K = 1
+    s0 = len(registry) - 250
+    fset = committee_set(rng, s0, registry[s0 - 1: s0 + 199])
+    point = dbls.device_msm_g1(fset[1], [1] * 200, pad_n=msm.msm_rung(200), device=dev)
+    log(f"precomputed committee: K=200 summed by the device MSM at rung {msm.msm_rung(200)}")
+    outcome = table.insert_precomputed([table.index_of_point(p) for p in fset[1]], point)
+    if outcome != "inserted":
+        raise AssertionError(f"insert_precomputed: {outcome}")
+    timed_verify(backend, [fset], "precomputed committee, first sighting", True,
+                 path="raw_gather", reps=1)
+    if backend.last_batch["k"] != 1 or backend.last_batch["collapsed"] != 1:
+        raise AssertionError("precomputed committee: first sighting did not ship K=1")
+    return hists
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -452,7 +845,8 @@ def main() -> int:
         return 1
     if args.time_only:
         sys.path.insert(0, str(Path(args.time_only).resolve()))
-    from lighthouse_tpu_torch.crypto.device import bls as dbls, kernels
+    from lighthouse_tpu_torch.crypto.device import bls as dbls, kernels, key_table
+    from lighthouse_tpu_torch.utils import slot_clock
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -488,6 +882,19 @@ def main() -> int:
         timed_verify(backend, sets, "quick verify (B=2)", True, reps=1)
         bad = [sets[0], (sets[1][0], sets[1][1], bytes(32))]
         timed_verify(backend, bad, "quick verify tampered", False, reps=1)
+        registry = registry_points(64)
+        table = key_table_phase(registry, dev)
+        key_table.set_table(table)
+        timed_verify(backend, gossip_sets(rng, 1, registry)[0][:2],
+                     "quick gathered verify (B=2)", True, reps=1, path="raw_gather")
+        key_table.clear_table(table)
+        sc = [int(s) for s in rng.integers(0, 2 ** 64, size=8, dtype=np.uint64)]
+        want = registry[0].mul(sc[0])
+        for p, s in zip(registry[1:8], sc[1:]):
+            want = want + p.mul(s)
+        if dbls.device_msm_g1(registry[:8], sc, device=dev) != want:
+            raise AssertionError("quick msm: differs from the host fold")
+        log("quick msm g1 N=8: equal to the host fold")
         log(card)
         log("quick run complete")
         return 0
@@ -523,16 +930,50 @@ def main() -> int:
     timed_verify(backend, poisoned, "block non-subgroup signature", False)
     lane_summary("gossip valid", ghist)
     lane_summary("block valid", bhist)
+    log(card)
 
-    log("phase 5 kernel timings at the block batch's lane counts (device ms "
-        "per launch, launches queued back to back)")
-    timings = time_kernels(rng, dev, path_shapes(ghist, bhist), errs)
+    n_reg = REGISTRY_SIZE
+    log(f"phase 5 key table: a registry of {n_reg} validators (secrets 1..{n_reg})")
+    t0 = time.perf_counter()
+    registry = registry_points(n_reg)
+    log(f"registry host build (Jacobian additions, one batch inversion): "
+        f"{time.perf_counter() - t0:.2f} s")
+    # chain time is the test's own: no epoch rolls over while it runs
+    slot_clock.set_clock(slot_clock.ManualSlotClock())
+    table = key_table_phase(registry, dev)
+    key_table.set_table(table)
+    log(card)
+
+    log("phase 6 gathered verifies (registry keys, collapse held off)")
+    gbsets, gbwall, hists = gathered_phase(rng, registry, table, backend, dev)
+    log(card)
+
+    log("phase 7 collapse: a fresh block batch seen three times (agg_min_repeats 2)")
+    csets, cwall, hists["collapsed block"] = collapse_phase(rng, registry, table, backend)
+    log(card)
+
+    log("phase 8 msm: G1 MSM and G2 sum against the host fold; precomputed committee")
+    hists.update(msm_phase(rng, registry, table, backend, dev, csets))
+    log(card)
+
+    log("phase 9 every kernel checked against its plain version and timed at "
+        "each path's lane counts (device ms per launch, launches queued back to back)")
+    hists = {"gossip": ghist, "block": bhist, **hists}
+    shapes = path_shapes(hists)
+    print_shapes(shapes, hists)
+    timings = time_kernels(rng, dev, shapes, errs)
     launch_floor(dev, card)
     # profiled after every timed run: a torch.profiler session slows the
     # launches that follow it (35-45% on an H100)
-    log("phase 6 profiles")
+    log("phase 10 profiles")
+    key_table.clear_table(table)  # the raw batches' keys are not the registry's
     gdev = profile_verify(backend, sets, "gossip valid", gwall)
     bdev = profile_verify(backend, bsets, "block valid", bwall)
+    key_table.set_table(table)
+    with held_collapse(table):
+        profile_verify(backend, gbsets, "gathered block valid", gbwall)
+    profile_verify(backend, csets, "collapsed block valid", cwall)
+    key_table.clear_table(table)
     per_verify = {}
     for label, dev_ms, cnt, hist in (("gossip", gdev, gcounts, ghist),
                                      ("block", bdev, counts, bhist)):

@@ -10,7 +10,9 @@ Deserialization follows the consensus rules:
   "empty" (infinity) signature. Decompression is lazy: the device backend
   ships the compressed x to the card and decompresses there.
 
-There is one backend, :class:`~.device.bls.CudaBackend`; no registry.
+There is one backend, :class:`~.device.bls.CudaBackend`, and no registry:
+every verifying call builds one on the device the caller names (``cuda``
+by default).
 """
 
 from __future__ import annotations
@@ -138,10 +140,16 @@ class Signature:
             )
         return self._bytes
 
+    def point_or_infinity(self) -> G2Point:
+        return G2Point.infinity() if self.point is None else self.point
+
     def is_infinity(self) -> bool:
         if not self._decompressed and self._bytes is not None:
             return bytes(self._bytes) == INFINITY_SIGNATURE
         return self._point is None or self._point.is_infinity()
+
+    def verify(self, pk: PublicKey, message: bytes, device: str = "cuda") -> bool:
+        return _backend(device).verify(pk.point, message, self.point_or_infinity())
 
     def __eq__(self, o):
         return isinstance(o, Signature) and self.serialize() == o.serialize()
@@ -151,6 +159,44 @@ class Signature:
 
     def __repr__(self):
         return f"Signature(0x{self.serialize().hex()})"
+
+
+class AggregateSignature(Signature):
+    """A signature accumulating others by point addition (reference:
+    generic_aggregate_signature.rs add_assign / add_assign_aggregate)."""
+
+    @classmethod
+    def infinity(cls) -> "AggregateSignature":
+        return cls(None, INFINITY_SIGNATURE)
+
+    def add_assign(self, other: Signature) -> None:
+        if other.point is None:
+            return
+        if self.point is None:
+            self._point = other.point
+        else:
+            self._point = self.point + other.point
+        self._decompressed = True
+        self._bytes = None
+
+    def fast_aggregate_verify(
+        self, message: bytes, pks: Sequence[PublicKey], device: str = "cuda"
+    ) -> bool:
+        if not pks:
+            return False
+        return _backend(device).fast_aggregate_verify(
+            [pk.point for pk in pks], message, self.point_or_infinity()
+        )
+
+    def aggregate_verify(
+        self, messages: Sequence[bytes], pks: Sequence[PublicKey],
+        device: str = "cuda",
+    ) -> bool:
+        if not pks or len(pks) != len(messages):
+            return False
+        return _backend(device).aggregate_verify(
+            [pk.point for pk in pks], list(messages), self.point_or_infinity()
+        )
 
 
 class SecretKey:
@@ -182,21 +228,60 @@ class SecretKey:
 
 class SignatureSet:
     """A signature over one message by one or more public keys: the unit
-    of batch verification."""
+    of batch verification (reference: generic_signature_set.rs).
 
-    __slots__ = ("signature", "signing_keys", "message")
+    ``signing_indices`` optionally carries the validator indices the keys
+    were resolved at: the key table's ``covers_sets`` uses them as a fast
+    pre-filter. They are advisory: the backend resolves keys by the
+    identity of the host cache's own point objects, so a stale or foreign
+    index can cost a raw-plane fallback, never a wrong-key verification."""
+
+    __slots__ = ("signature", "signing_keys", "message", "signing_indices")
 
     def __init__(
         self,
         signature: Signature,
         signing_keys: Sequence[PublicKey],
         message: bytes,
+        signing_indices: Optional[Sequence[int]] = None,
     ):
         if len(message) != 32:
             raise BlsError("message must be a 32-byte signing root")
         self.signature = signature
         self.signing_keys = list(signing_keys)
         self.message = bytes(message)
+        if signing_indices is not None:
+            signing_indices = [int(i) for i in signing_indices]
+            if len(signing_indices) != len(self.signing_keys):
+                raise BlsError("signing_indices must match signing_keys one-to-one")
+        self.signing_indices = signing_indices
+
+    @classmethod
+    def single_pubkey(
+        cls, signature: Signature, signing_key: PublicKey, message: bytes,
+        signing_index: Optional[int] = None,
+    ) -> "SignatureSet":
+        return cls(signature, [signing_key], message,
+                   None if signing_index is None else [signing_index])
+
+    @classmethod
+    def multiple_pubkeys(
+        cls, signature: Signature, signing_keys: Sequence[PublicKey],
+        message: bytes, signing_indices: Optional[Sequence[int]] = None,
+    ) -> "SignatureSet":
+        return cls(signature, signing_keys, message, signing_indices)
+
+    def verify(self, device: str = "cuda") -> bool:
+        """Verify just this set (fast_aggregate_verify)."""
+        return AggregateSignature(
+            self.signature.point, self.signature.serialize()
+        ).fast_aggregate_verify(self.message, self.signing_keys, device=device)
+
+
+def _backend(device: str):
+    from .device.bls import CudaBackend
+
+    return CudaBackend(device=device)
 
 
 def verify_signature_sets(
@@ -208,20 +293,19 @@ def verify_signature_sets(
     The backend receives the Signature objects, so the compressed bytes
     go to the device and are decompressed there. A malformed encoding is
     an ordinary invalid outcome, never an exception."""
-    from .device.bls import CudaBackend
-
     sets = list(sets)
     prepared = [
         (s.signature, [pk.point for pk in s.signing_keys], s.message)
         for s in sets
     ]
     try:
-        return CudaBackend(device=device).verify_signature_sets(prepared)
+        return _backend(device).verify_signature_sets(prepared)
     except BlsError:
         return False
 
 
 __all__ = [
+    "AggregateSignature",
     "BlsError",
     "DST",
     "INFINITY_SIGNATURE",

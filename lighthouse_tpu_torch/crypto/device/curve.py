@@ -268,3 +268,28 @@ def pack_g2(points) -> tuple[np.ndarray, np.ndarray]:
             p.x.c0.n, p.x.c1.n, p.y.c0.n, p.y.c1.n)
     xy = ints_to_limbs(coords).reshape(len(points), 2, 2, _fp.NL)
     return xy, infs
+
+
+def unpack_g1(xy, inf) -> list:
+    """Affine limb arrays (xy int32[n, 2, 32], inf bool[n]) -> cpu
+    G1Point list."""
+    from ..cpu.curve import G1Point
+    from ..cpu.fields import Fq
+
+    xy, inf = np.asarray(xy), np.asarray(inf)
+    return [G1Point.infinity() if inf[i] else
+            G1Point(Fq(_fp.limbs_to_int(xy[i, 0])), Fq(_fp.limbs_to_int(xy[i, 1])))
+            for i in range(xy.shape[0])]
+
+
+def unpack_g2(xy, inf) -> list:
+    """Affine limb arrays (xy int32[n, 2, 2, 32], inf bool[n]) -> cpu
+    G2Point list."""
+    from ..cpu.curve import G2Point
+    from ..cpu.fields import Fq2
+
+    xy, inf = np.asarray(xy), np.asarray(inf)
+    return [G2Point.infinity() if inf[i] else G2Point(
+        Fq2.from_ints(_fp.limbs_to_int(xy[i, 0, 0]), _fp.limbs_to_int(xy[i, 0, 1])),
+        Fq2.from_ints(_fp.limbs_to_int(xy[i, 1, 0]), _fp.limbs_to_int(xy[i, 1, 1])))
+        for i in range(xy.shape[0])]

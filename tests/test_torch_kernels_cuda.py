@@ -110,3 +110,36 @@ def test_verify_on_card_counts_launches(dev):
         assert sum(k * v for k, v in hist.items()) == kernels.lanes[name] >= n
     bad = [sets[0], (sets[1][0], sets[1][1], m1)]
     assert backend.verify_signature_sets(bad) is False
+
+
+def test_key_table_grown_on_card_gathers_as_on_cpu(dev):
+    """A table synced on the card and grown across one capacity rung (1024
+    -> 4096 rows, copied on the device) gathers the same rows, aggregate
+    region included, as the same table on the CPU: torch.equal."""
+    import types
+
+    from lighthouse_tpu_torch.crypto.cpu.curve import g1_generator
+    from lighthouse_tpu_torch.crypto.device.bls import _gather_fn
+    from lighthouse_tpu_torch.crypto.device.key_table import DeviceKeyTable
+
+    g = g1_generator()
+    pts, p = [], g
+    for _ in range(1100):
+        pts.append(types.SimpleNamespace(point=p))
+        p = p + g
+    caches = [types.SimpleNamespace(pubkeys=pts[:1000]) for _ in range(2)]
+    tables = [DeviceKeyTable(c, agg_min_repeats=1, upload_chunk_rows=300, device=d)
+              for c, d in zip(caches, (dev, "cpu"))]
+    committee = (None, [pts[i].point for i in (3, 4, 5)], b"\x00" * 32)
+    for t, c in zip(tables, caches):
+        t.sync(reason="startup")
+        assert t.resolve_sets([committee])[3] == 1
+        c.pubkeys.extend(pts[1000:])
+        assert t.sync() == 100
+        assert t.status()["validator_capacity"] == 4096
+    (gdev, gagg), (cdev, cagg) = (t.device_arrays() for t in tables)
+    assert gdev.device.type == "cuda" and gagg.device.type == "cuda"
+    idx = torch.tensor([[0, 999, 1000, 1099], [4096, 4097, 5, 9999]], dtype=torch.int32)
+    got = _gather_fn(gdev, gagg, idx.to(dev))
+    assert torch.equal(got.cpu(), _gather_fn(cdev, cagg, idx))
+    assert torch.equal(gdev.cpu(), cdev)
