@@ -39,7 +39,18 @@ plain torch version on the card. Phases, in order; any failure raises:
    ``device_sum_g2`` at N = 128 equal to the host fold; one committee's
    all-ones MSM equal to the table's host sum; a committee inserted with
    ``insert_precomputed`` ships K = 1 at its first sighting -> True;
-9. kernel timings where the path runs them: each kernel checked again and
+9. warm dispatch: the graphs captured on first use in phases 3-8 are
+   dropped; a ``CompileService`` over the rungs those batches landed on,
+   then the first ``WARM_DEFAULT_RUNGS`` of ``DEFAULT_RUNGS``, with the MSM
+   ladder on, captures every stage graph ahead of traffic (per rung and
+   stage: capture and eager warm-up seconds, node count, pool bytes); with
+   the service attached the gossip, raw block, gathered block and
+   collapsed block batches are verified again, every stage replaying its
+   graph, their credited launches and lanes equal to the eager run's; a
+   stale-input sequence (valid, poisoned, valid, other signers valid and
+   poisoned) on one rung; the MSM and G2 sum through their graphs equal to
+   the host fold;
+10. kernel timings where the path runs them: each kernel checked again and
    timed (device ms per launch, launches queued back to back behind a
    device sleep, CUDA events) with its plain version and its bound at 1
    lane, at the most frequent and at the largest lane count of the block
@@ -47,14 +58,19 @@ plain torch version on the card. Phases, in order; any failure raises:
    and at the shapes earlier versions timed; beside them the launch
    floor, the device time per launch of a one-element in-place add
    queued the same way;
-10. one more valid verify of each raw batch, of the gathered block batch
-   and of the collapsed block batch under torch.profiler: the device busy
-   share, and for the raw batches each kernel's device ms per verify
-   beside its lanes per verify and the bound summed over them.
+11. two more valid verifies, graph replays, of each raw batch, of the
+   gathered block batch and of the collapsed block batch: one timed by
+   CUDA events around the replays, one under torch.profiler (which sees
+   the kernels inside the graphs): the device busy share, and for the raw
+   batches each kernel's device ms per verify beside its lanes per verify
+   and the bound summed over them.
 
-Each batch is verified three times (median wall printed); every verify
-prints its path, padded shape, host resolve and pack seconds and the
-bytes it copied to the card.
+Each stage is one CUDA graph per rung (``graphs.CapturedProgram``): a
+rung's first verify runs the eager warm-ups and captures, later ones
+replay, and the counts of the two must be equal. Each batch is verified
+three times (median wall printed); every verify prints its path, padded
+rung, whether it replayed, its per-stage walls, host resolve and pack
+seconds and the bytes it copied to the card.
 
 The counts of kernel launches (and the lanes they carry) are set to 0
 just before each verify and read just after it. The kernels line reports
@@ -63,7 +79,7 @@ from ``--seed``; the host signer (pure Python) is independent of the
 device hash-to-curve.
 
     python3 chip_smoke.py            # the full check (one card)
-    python3 chip_smoke.py --quick    # build, kernel checks and timings, tiny verifies and MSM
+    python3 chip_smoke.py --quick    # build, kernel checks and timings, graphs, tiny verifies, MSM
     python3 chip_smoke.py --time-only DIR   # time the kernels of the checkout at DIR
 """
 
@@ -98,6 +114,11 @@ LANE_BYTES = {"fp_mul_cols": 3 * 32 * 4, "fp2_mul": 3 * 64 * 4, "fp2_sq": 2 * 64
 # The key table's registry: 2^19 validators, the order of mainnet's
 # registry when the reference's v3.3.0 shipped.
 REGISTRY_SIZE = 1 << 19
+# The warm phase's compile service walks the batches' rungs, then this many
+# of the default rungs (a rung's three captures take about 10 s on an H100,
+# so the whole ladder would take minutes); and waits this long for them.
+WARM_DEFAULT_RUNGS = 3
+WARM_TIMEOUT_S = 600
 # The MSM phase's point counts: the top MSM rung (a mainnet committee) for
 # G1 with random u64 scalars, and 128 points for the G2 sum.
 MSM_N = 512
@@ -460,22 +481,29 @@ def non_subgroup_signature(rng):
 def batch_line(backend) -> str:
     """The backend's description of its latest batch, for the log."""
     lb = backend.last_batch
+    stages = ", ".join(f"{k} {v:.4f}" for k, v in lb["stages"].items())
     return (f"path {lb['path']}, B={lb['b']} K={lb['k']} M={lb['m']}, "
-            f"{lb['collapsed']} of {lb['n_sets']} sets collapsed, host resolve "
-            f"{lb['resolve_s']:.4f} s, host pack {lb['pack_s']:.4f} s, H2D "
+            f"{'graphs replayed' if lb['warm'] else 'a stage captured'} (stage s: "
+            f"{stages}), {lb['collapsed']} of {lb['n_sets']} sets collapsed, host "
+            f"resolve {lb['resolve_s']:.4f} s, host pack {lb['pack_s']:.4f} s, H2D "
             f"{lb['h2d_bytes']} B of which pubkey planes {lb['pubkey_bytes']} B")
 
 
-def timed_verify(backend, sets, label, expect, reps: int = 3, path=None):
+def timed_verify(backend, sets, label, expect, reps: int = 3, path=None,
+                 warm=None, record=None):
     """``reps`` verifies of one batch, each with the launch counts set to 0
     just before it and read just after it; prints every wall time and the
-    median, the batch's path and shape, and its host and copy costs.
-    ``path``, when given, is the path every verify must take. Returns
+    median, the batch's path, rung and per-stage walls, and its host and
+    copy costs. A rung's first verify runs each stage's eager warm-up and
+    captures its graph; later ones replay it: their counts must be equal.
+    ``path``, when given, is the path every verify must take; ``warm``,
+    when True, requires every verify to replay graphs only. ``record``,
+    when given, receives the per-stage seconds of each verify. Returns
     (median wall, launch counts and lane histograms {kernel: {lanes:
     launches}} of the last run)."""
     from lighthouse_tpu_torch.crypto.device import kernels
 
-    walls, counts, hist = [], None, None
+    walls, counts, hist, kinds, stage_s = [], None, None, [], []
     for _ in range(reps):
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -483,22 +511,31 @@ def timed_verify(backend, sets, label, expect, reps: int = 3, path=None):
         verdict = backend.verify_signature_sets(sets)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        lb = backend.last_batch
         if verdict is not expect:
             raise AssertionError(f"{label}: verdict {verdict}, expected {expect}")
-        if path is not None and backend.last_batch["path"] != path:
-            raise AssertionError(f"{label}: path {backend.last_batch['path']}, "
-                                 f"expected {path}")
+        if path is not None and lb["path"] != path:
+            raise AssertionError(f"{label}: path {lb['path']}, expected {path}")
+        if warm and not lb["warm"]:
+            raise AssertionError(f"{label}: a stage was captured, not replayed")
         if counts is not None and counts != kernels.launches:
-            raise AssertionError(f"{label}: launch counts differ between runs")
+            raise AssertionError(f"{label}: launch counts differ between runs "
+                                 f"({counts} then {kernels.launches})")
         counts = dict(kernels.launches)
         hist = {k: dict(h) for k, h in kernels.lane_hist.items()}
+        kinds.append("replay" if lb["warm"] else "capture")
+        stage_s.append(lb["stages"])
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched: {missing}")
     wall = statistics.median(walls)
-    log(f"{label}: verdict {expect} x{reps}; {wall:.3f} s per verify (median of "
-        f"{', '.join(f'{w:.3f}' for w in walls)}); launches {json.dumps(counts)}; "
-        f"lanes {json.dumps(dict(kernels.lanes))}")
+    med = {k: statistics.median(s[k] for s in stage_s) for k in stage_s[-1]}
+    if record is not None:
+        record.update(walls=walls, stages=med, kinds=kinds)
+    log(f"{label}: verdict {expect} x{reps} ({', '.join(kinds)}); {wall:.3f} s per "
+        f"verify (median of {', '.join(f'{w:.3f}' for w in walls)}); per-stage median "
+        f"s {json.dumps({k: round(v, 4) for k, v in med.items()})}; launches "
+        f"{json.dumps(counts)}; lanes {json.dumps(dict(kernels.lanes))}")
     log(f"  {label}: {batch_line(backend)}")
     return wall, counts, hist
 
@@ -508,7 +545,7 @@ def check_stage1_against_host(sets, msgs, hs, dev):
     from lighthouse_tpu_torch.crypto.device import bls as dbls, fp
 
     args = dbls.pack_signature_sets_raw(sets, device=dev)
-    sig_xy, mx, my, minf, sig_ok = dbls._stage1_fn(args[2], args[3], args[4])
+    sig_xy, mx, my, minf, sig_ok = dbls._stage1(args[2], args[3], args[4])
     if not bool(sig_ok[: len(sets)].all()):
         raise AssertionError("stage 1: a valid signature failed decompression")
     sig_c = fp.canonical(sig_xy).cpu().numpy()
@@ -529,15 +566,27 @@ def check_stage1_against_host(sets, msgs, hs, dev):
 
 
 def profile_verify(backend, sets, label, wall):
-    """One more verify under torch.profiler: the device time by kernel
-    name, and the device's busy share of ``wall`` (the unprofiled median).
-    Returns {kernel: device ms} for the port's kernels."""
+    """Two more verifies, their stages replaying their graphs: one with
+    CUDA events around each replay (the graphs' device time, gaps between
+    their nodes included), then one under torch.profiler (the device time
+    by kernel name, which the profiler reads inside the graphs). Prints
+    the device's busy share of ``wall`` (the unprofiled median). Returns
+    {kernel: device ms} for the port's kernels (None where the profiler
+    saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from lighthouse_tpu_torch.crypto.device import graphs
+
     torch.cuda.synchronize()
+    graphs.set_event_timing(True)
+    backend.verify_signature_sets(sets)
+    replay_s = graphs.replay_device_ms() / 1e3
+    graphs.set_event_timing(False)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         backend.verify_signature_sets(sets)
         torch.cuda.synchronize()
+    if not backend.last_batch["warm"]:
+        raise AssertionError(f"profile {label}: a stage was captured, not replayed")
     rows = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -550,11 +599,15 @@ def profile_verify(backend, sets, label, wall):
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     log(f"profile {label}: device busy {busy_s:.4f} s in {sum(r[1] for r in rows)} "
-        f"device ops; idle share {1 - busy_s / wall:.3f} of the {wall:.3f} s median wall")
+        f"device ops (profiler); graph replays {replay_s:.4f} s of device time (CUDA "
+        f"events, gaps inside the graphs included); idle share "
+        f"{1 - busy_s / wall:.3f} (profiler) / {1 - replay_s / wall:.3f} (events) of "
+        f"the {wall:.4f} s median wall")
     for dev_us, count, key in rows[:10]:
         log(f"  {dev_us / 1e3:9.3f} ms {count:7d}x  {key[:80]}")
-    return {name: sum(r[0] for r in rows if PROFILE_NAME[name] in r[2]) / 1e3
-            for name in KERNELS}
+    per = {name: sum(r[0] for r in rows if PROFILE_NAME[name] in r[2]) / 1e3
+           for name in KERNELS}
+    return {name: ms or None for name, ms in per.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -745,7 +798,8 @@ def msm_phase(rng, registry, table, backend, dev, csets):
     """The G1 MSM at N = 512 and the G2 sum at N = 128 against the host
     fold; one committee's all-ones MSM against the table's host sum; and a
     committee inserted ahead of time whose first sighting ships K = 1.
-    Returns the lane histograms of the three device sums by path."""
+    Returns the lane histograms of the three device sums by path, and the
+    inputs and host folds of the G1 MSM and the G2 sum."""
     from lighthouse_tpu_torch.crypto.cpu.curve import G1Point, G2Point, g2_generator
     from lighthouse_tpu_torch.crypto.device import bls as dbls, curve, kernels, msm
 
@@ -781,6 +835,7 @@ def msm_phase(rng, registry, table, backend, dev, csets):
     log(f"msm g1 host fold: {time.perf_counter() - t0:.3f} s")
     if got.compress() != want.compress():
         raise AssertionError("msm g1: differs from the host fold")
+    refs = {"g1": (pts, sc, want), "g2": (None, None, None)}
     log(f"msm g1 N={MSM_N} (random u64 scalars, one all-ones): equal to the host fold")
 
     g2 = g2_generator()
@@ -797,6 +852,7 @@ def msm_phase(rng, registry, table, backend, dev, csets):
         want2 = want2 + p
     if got2.compress() != want2.compress():
         raise AssertionError("sum g2: differs from the host fold")
+    refs["g2"] = (pts2, None, want2)
     log(f"sum g2 N={G2_N}: equal to the host fold")
 
     # one committee of the collapsed batch: the duty lookahead's all-ones MSM
@@ -826,7 +882,214 @@ def msm_phase(rng, registry, table, backend, dev, csets):
                  path="raw_gather", reps=1)
     if backend.last_batch["k"] != 1 or backend.last_batch["collapsed"] != 1:
         raise AssertionError("precomputed committee: first sighting did not ship K=1")
-    return hists
+    return hists, refs
+
+
+# ---------------------------------------------------------------------------
+# The warm staged dispatch: each stage a CUDA graph per rung, captured by the
+# compile service ahead of traffic
+# ---------------------------------------------------------------------------
+
+def check_captured_k1(rng, dev) -> None:
+    """One K1 launch from the ctypes library captured into a graph on the
+    torch stream: the capture's own replay equals the eager warm-up (the
+    wrapper checks), and a replay on new inputs equals an eager launch."""
+    from lighthouse_tpu_torch.crypto.device import graphs, kernels
+
+    x, y, x2, y2 = (operands(rng, "fp_mul_cols", 192, dev)[0] for _ in range(4))
+    prog = graphs.CapturedProgram(kernels.fp_mul, "check_k1")
+    if not torch.equal(prog(x, y), kernels.fp_mul_plain(x, y)):
+        raise AssertionError("captured K1: the capture differs from the plain version")
+    if not torch.equal(prog(x2, y2), kernels.fp_mul(x2, y2)):
+        raise AssertionError("captured K1: a replay differs from an eager launch")
+    g = prog.graph_for(x, y)
+    log(f"captured K1 at 192 lanes: capture and replay equal to eager; {g.nodes} "
+        f"graph nodes, capture {g.capture_s:.4f} s, pool {g.pool_bytes} B")
+    prog.reset()
+    kernels.reset_launches()
+
+
+def start_service(plan, dev):
+    """Start a compile service over ``plan`` with the MSM ladder on, attach
+    it, and wait until it has warmed every rung. Returns (service, wall)."""
+    from lighthouse_tpu_torch.compile_service import service as csvc
+
+    svc = csvc.CompileService(rungs=plan, device=dev)
+    csvc.set_msm_warm_enabled(True)
+    csvc.set_service(svc)
+    t0 = time.perf_counter()
+    svc.start()
+    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError(f"compile service not idle after {WARM_TIMEOUT_S} s: "
+                             f"{json.dumps(svc.status(), default=str)[:2000]}")
+    wall = time.perf_counter() - t0
+    st = svc.status()
+    cold = [r for r in plan if [*r, csvc.IMPL] not in st["warm_rungs"]]
+    if st["failed_total"] or cold:
+        raise AssertionError(f"compile service: rungs {cold} cold, "
+                             f"{st['failed_total']} failures: {st['last_error']}")
+    return svc, wall
+
+
+def capture_table(plan, msm_rungs, dev) -> dict:
+    """Print each rung's stage graphs (and the MSM ladder's): capture
+    seconds, eager warm-up seconds, node count, pool bytes; a graph two
+    rungs share is printed once. Returns the rows by 'BxKxM stage'."""
+    from lighthouse_tpu_torch.compile_service import lowering
+    from lighthouse_tpu_torch.crypto.device import bls as dbls, fp
+
+    progs = lowering.staged_captured()
+    out, seen = {}, {}
+
+    def row(label, g):
+        if g is None:
+            raise AssertionError(f"{label}: no graph captured")
+        if id(g) in seen:  # stage 1 keys on (B, M), stage 2 on (B, K), stage 3 on B
+            out[label] = {"same_as": seen[id(g)]}
+            log(f"  {label}: the graph of {seen[id(g)]}")
+            return
+        seen[id(g)] = label
+        out[label] = dict(capture_s=g.capture_s, instantiate_s=g.instantiate_s,
+                          warmup_s=g.warmup_s, nodes=g.nodes,
+                          pool_bytes=g.pool_bytes, launches=g.record()["launches"])
+        log(f"  {label}: capture {g.capture_s:.3f} s (instantiate {g.instantiate_s:.3f}), "
+            f"eager warm-up {g.warmup_s:.3f} s, "
+            f"{g.nodes} nodes, pool {g.pool_bytes} B, launches {json.dumps(out[label]['launches'])}")
+
+    for rung in plan:
+        args = lowering.staged_dummy_args(*rung, device=dev)
+        for stage in lowering.STAGES:
+            row(f"{'x'.join(map(str, rung))} {stage}", progs[stage].graph_for(*args[stage]))
+    for n in msm_rungs:
+        z = lambda *shape, dt=torch.int32: torch.zeros(shape, dtype=dt, device=dev)  # noqa: E731
+        row(f"msm N={n}", dbls._msm.graph_for(z(n, 2, fp.NL), z(n, dt=torch.bool), z(n, 2)))
+        row(f"g2sum N={n}", dbls._g2sum.graph_for(z(n, 2, 2, fp.NL), z(n, dt=torch.bool)))
+    return out
+
+
+def graph_summary(label: str) -> dict:
+    """Print and return the totals of every captured graph."""
+    from lighthouse_tpu_torch.crypto.device import graphs
+
+    st = graphs.status()
+    log(f"{label}: {st['graphs']} graphs, {st['nodes']} nodes, {st['pool_bytes']} B of "
+        f"graph pools on the card (reserved {torch.cuda.memory_reserved()} B in all); "
+        f"lock waits {json.dumps(st['lock_wait_s'])}")
+    return {k: st[k] for k in ("graphs", "nodes", "pool_bytes", "lock_wait_s")}
+
+
+def stale_input_check(rng, backend, sets) -> None:
+    """On one rung (``sets``: a gossip batch, its first two sets of one
+    committee): valid, poisoned (the first two signatures swapped: same
+    message, wrong signers), valid, a second valid batch with other
+    signers, then that batch with a non-subgroup signature. Each verdict
+    must be right and each verify must replay the rung's graphs (stale
+    inputs would repeat a verdict)."""
+    swapped = list(sets)
+    swapped[0] = (sets[1][0], sets[0][1], sets[0][2])
+    swapped[1] = (sets[0][0], sets[1][1], sets[1][2])
+    other, _m, _h = gossip_sets(rng, 5000)
+    other = other[: len(sets)]
+    other_bad = list(other)
+    other_bad[-1] = (non_subgroup_signature(rng), other[-1][1], other[-1][2])
+    rung = None
+    seq = (("valid", sets, True), ("poisoned", swapped, False), ("valid", sets, True),
+           ("other signers valid", other, True),
+           ("other signers poisoned", other_bad, False))
+    for label, batch, want in seq:
+        got = backend.verify_signature_sets(batch)
+        lb = backend.last_batch
+        rung = rung or lb["rung"]
+        if got is not want or not lb["warm"] or lb["rung"] != rung:
+            raise AssertionError(f"stale-input check, {label}: verdict {got} (want {want}), "
+                                 f"warm {lb['warm']}, rung {lb['rung']} (want {rung})")
+    log(f"stale-input check on rung {rung}: " + ", ".join(
+        f"{label} {want}" for label, _b, want in seq) + " (all replays)")
+
+
+def served_verify(backend, sets, label, expect, path, eager_hist) -> dict:
+    """Three verifies with the service attached, all replays; their
+    credited launches and lanes must equal the eager run's."""
+    rec = {}
+    wall, counts, hist = timed_verify(backend, sets, label, expect, path=path,
+                                      warm=True, record=rec)
+    if hist != eager_hist:
+        raise AssertionError(f"{label}: credited lane counts differ from the eager run")
+    log(f"  {label}: credited launches and lanes equal the eager run's")
+    return dict(wall=wall, walls=rec["walls"], stages=rec["stages"], launches=counts,
+                rung=backend.last_batch["rung"])
+
+
+def served_sum(label, fn, want, eager_hist) -> None:
+    """One device sum with the service attached: equal to the host fold,
+    its credited counts equal the eager run's."""
+    from lighthouse_tpu_torch.crypto.device import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = fn()
+    dt = time.perf_counter() - t0
+    hist = {k: dict(h) for k, h in kernels.lane_hist.items()}
+    if got.compress() != want.compress():
+        raise AssertionError(f"{label}: differs from the host fold")
+    if hist != eager_hist:
+        raise AssertionError(f"{label}: credited lane counts differ from the eager run")
+    log(f"{label} through its graph: equal to the host fold, {dt:.4f} s; credited "
+        f"launches {json.dumps(dict(kernels.launches))} equal the eager run's")
+
+
+def warm_phase(rng, dev, backend, table, batches, path_rungs, eager, refs) -> dict:
+    """Drop the graphs the earlier phases captured on first use, start a
+    compile service over the batches' rungs then ``DEFAULT_RUNGS`` (the
+    first ``WARM_DEFAULT_RUNGS`` of them), print the capture table, then
+    verify every path with the service attached, run the stale-input
+    check and the MSM and G2 sum through their graphs."""
+    from lighthouse_tpu_torch.compile_service.service import DEFAULT_RUNGS
+    from lighthouse_tpu_torch.crypto.device import bls as dbls, graphs, key_table
+
+    graphs.reset()
+    dbls.reset_recompile_tracking()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    plan = list(dict.fromkeys([*path_rungs, *DEFAULT_RUNGS[:WARM_DEFAULT_RUNGS]]))
+    log(f"compile service plan: the batches' rungs {path_rungs}, then "
+        f"{WARM_DEFAULT_RUNGS} of the {len(DEFAULT_RUNGS)} default rungs "
+        f"({len(plan)} rungs); MSM ladder on")
+    svc, wall = start_service(plan, dev)
+    log(f"compile service warmed {len(plan)} rungs and the MSM ladder in {wall:.2f} s")
+    table_rows = capture_table(plan, svc.status()["msm_warm"], dev)
+    summary = graph_summary("captured graphs after the warm-up")
+    out = {"warm_s": wall, "plan": plan, "captures": table_rows, "graphs": summary,
+           "paths": {}}
+
+    key_table.clear_table(table)  # the raw batches' keys are not the registry's
+    for label in ("gossip", "block"):
+        sets, path = batches[label]
+        out["paths"][label] = served_verify(backend, sets, f"served {label} valid", True,
+                                            path, eager[label])
+    stale_input_check(rng, backend, batches["gossip"][0])
+    key_table.set_table(table)
+    with held_collapse(table):
+        sets, path = batches["gathered block"]
+        out["paths"]["gathered block"] = served_verify(
+            backend, sets, "served gathered block valid", True, path,
+            eager["gathered block"])
+    sets, path = batches["collapsed block"]
+    out["paths"]["collapsed block"] = served_verify(
+        backend, sets, "served collapsed block valid", True, path,
+        eager["collapsed block"])
+    pts, sc, want = refs["g1"]
+    served_sum(f"msm g1 N={MSM_N}",
+               lambda: dbls.device_msm_g1(pts, sc, pad_n=MSM_N, device=dev), want,
+               eager[f"msm g1 N={MSM_N}"])
+    pts2, _sc, want2 = refs["g2"]
+    served_sum(f"sum g2 N={G2_N}",
+               lambda: dbls.device_sum_g2(pts2, pad_n=G2_N, device=dev), want2,
+               eager[f"sum g2 N={G2_N}"])
+    out["graphs_after"] = graph_summary("captured graphs after the served verifies")
+    out["service"] = svc
+    return out
 
 
 def main() -> int:
@@ -874,27 +1137,46 @@ def main() -> int:
 
     backend = dbls.CudaBackend(device=dev)
     if args.quick:
+        from lighthouse_tpu_torch.compile_service import service as csvc
+        from lighthouse_tpu_torch.crypto.device import graphs
+
         log("kernel timings (device ms per launch, launches queued back to back)")
         time_kernels(rng, dev, QUICK_LANES, errs)
         launch_floor(dev, card)
-        sets, msgs, hs = gossip_sets(rng, 1000)
-        sets = sets[:2]
-        timed_verify(backend, sets, "quick verify (B=2)", True, reps=1)
-        bad = [sets[0], (sets[1][0], sets[1][1], bytes(32))]
-        timed_verify(backend, bad, "quick verify tampered", False, reps=1)
+        check_captured_k1(rng, dev)
+        gsets, msgs, hs = gossip_sets(rng, 1000)
+        sets = gsets[:2]
+        timed_verify(backend, sets, "quick verify (B=2)", True)
+        bad = [sets[0], (sets[0][0], sets[1][1], sets[1][2])]  # wrong signer
+        timed_verify(backend, bad, "quick verify wrong signer", False, reps=1, warm=True)
+        graphs.reset()
+        dbls.reset_recompile_tracking()
+        plan = [(2, 1, 1), (64, 1, 8), (192, 256, 192)]
+        svc, wall = start_service(plan, dev)
+        log(f"compile service warmed {plan} and {svc.status()['msm_warm']} of the MSM "
+            f"ladder in {wall:.2f} s")
+        capture_table(plan, svc.status()["msm_warm"], dev)
+        graph_summary("captured graphs")
+        stale_input_check(rng, backend, sets)
+        gwall, _c, _h = timed_verify(backend, gsets, "quick gossip (B=64) served", True,
+                                     warm=True)
+        profile_verify(backend, gsets, "quick gossip served", gwall)
         registry = registry_points(64)
         table = key_table_phase(registry, dev)
         key_table.set_table(table)
         timed_verify(backend, gossip_sets(rng, 1, registry)[0][:2],
-                     "quick gathered verify (B=2)", True, reps=1, path="raw_gather")
+                     "quick gathered verify (B=2)", True, path="raw_gather", warm=True)
         key_table.clear_table(table)
         sc = [int(s) for s in rng.integers(0, 2 ** 64, size=8, dtype=np.uint64)]
         want = registry[0].mul(sc[0])
         for p, s in zip(registry[1:8], sc[1:]):
             want = want + p.mul(s)
-        if dbls.device_msm_g1(registry[:8], sc, device=dev) != want:
-            raise AssertionError("quick msm: differs from the host fold")
-        log("quick msm g1 N=8: equal to the host fold")
+        for rep in ("capture", "replay"):
+            if dbls.device_msm_g1(registry[:8], sc, device=dev) != want:
+                raise AssertionError(f"quick msm ({rep}): differs from the host fold")
+        log("quick msm g1 N=8: capture and replay equal to the host fold")
+        svc.stop()
+        csvc.clear_service(svc)
         log(card)
         log("quick run complete")
         return 0
@@ -909,6 +1191,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"gossip host pack (parse, limbs, hash_to_field, copy): {time.perf_counter() - t0:.3f} s")
     gwall, gcounts, ghist = timed_verify(backend, sets, "gossip valid", True)
+    path_rungs = [backend.last_batch["rung"]]
     tampered = list(sets)
     sig, pks, m = tampered[17]
     tampered[17] = (sig, pks, bytes([m[0] ^ 1]) + m[1:])
@@ -925,6 +1208,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"block host pack (parse, limbs, hash_to_field, copy): {time.perf_counter() - t0:.3f} s")
     bwall, counts, bhist = timed_verify(backend, bsets, "block valid", True)
+    path_rungs.append(backend.last_batch["rung"])
     poisoned = list(bsets)
     poisoned[5] = (non_subgroup_signature(rng), bsets[5][1], bsets[5][2])
     timed_verify(backend, poisoned, "block non-subgroup signature", False)
@@ -950,29 +1234,42 @@ def main() -> int:
 
     log("phase 7 collapse: a fresh block batch seen three times (agg_min_repeats 2)")
     csets, cwall, hists["collapsed block"] = collapse_phase(rng, registry, table, backend)
+    path_rungs.append(backend.last_batch["rung"])
     log(card)
 
     log("phase 8 msm: G1 MSM and G2 sum against the host fold; precomputed committee")
-    hists.update(msm_phase(rng, registry, table, backend, dev, csets))
+    msm_hists, refs = msm_phase(rng, registry, table, backend, dev, csets)
+    hists.update(msm_hists)
+    path_rungs.append(backend.last_batch["rung"])
     log(card)
 
-    log("phase 9 every kernel checked against its plain version and timed at "
-        "each path's lane counts (device ms per launch, launches queued back to back)")
+    log("phase 9 warm dispatch: the compile service captures each rung's stage graphs; "
+        "every path verified through the graphs, with the service attached")
     hists = {"gossip": ghist, "block": bhist, **hists}
+    batches = {"gossip": (sets, "raw_staged"), "block": (bsets, "raw_staged"),
+               "gathered block": (gbsets, "raw_gather"),
+               "collapsed block": (csets, "raw_gather")}
+    warm = warm_phase(rng, dev, backend, table, batches,
+                      list(dict.fromkeys(path_rungs)), hists, refs)
+    log(card)
+
+    log("phase 10 every kernel checked against its plain version and timed at "
+        "each path's lane counts (device ms per launch, launches queued back to back)")
     shapes = path_shapes(hists)
     print_shapes(shapes, hists)
     timings = time_kernels(rng, dev, shapes, errs)
     launch_floor(dev, card)
     # profiled after every timed run: a torch.profiler session slows the
     # launches that follow it (35-45% on an H100)
-    log("phase 10 profiles")
+    log("phase 11 profiles (graph replays)")
     key_table.clear_table(table)  # the raw batches' keys are not the registry's
-    gdev = profile_verify(backend, sets, "gossip valid", gwall)
-    bdev = profile_verify(backend, bsets, "block valid", bwall)
+    served = {k: v["wall"] for k, v in warm["paths"].items()}
+    gdev = profile_verify(backend, sets, "gossip valid", served["gossip"])
+    bdev = profile_verify(backend, bsets, "block valid", served["block"])
     key_table.set_table(table)
     with held_collapse(table):
-        profile_verify(backend, gbsets, "gathered block valid", gbwall)
-    profile_verify(backend, csets, "collapsed block valid", cwall)
+        profile_verify(backend, gbsets, "gathered block valid", served["gathered block"])
+    profile_verify(backend, csets, "collapsed block valid", served["collapsed block"])
     key_table.clear_table(table)
     per_verify = {}
     for label, dev_ms, cnt, hist in (("gossip", gdev, gcounts, ghist),
@@ -980,11 +1277,19 @@ def main() -> int:
         for k in KERNELS:
             lanes = sum(n * c for n, c in hist[k].items())
             b_ms = sum(bound(k, n)[0] * c for n, c in hist[k].items())
-            log(f"per {label} verify {k}: {dev_ms[k]:.3f} device ms in {cnt[k]} "
-                f"launches ({1e3 * dev_ms[k] / cnt[k]:.2f} us each), {lanes} lanes, "
-                f"bound over those lanes {b_ms:.4f} ms ({b_ms / dev_ms[k]:.2%})")
+            ms = dev_ms[k]
+            seen = (f"{ms:.3f} device ms in {cnt[k]} launches ({1e3 * ms / cnt[k]:.2f} us "
+                    f"each)" if ms else f"not seen by the profiler ({cnt[k]} launches)")
+            log(f"per {label} verify {k}: {seen}, {lanes} lanes, bound over those "
+                f"lanes {b_ms:.4f} ms" + (f" ({b_ms / ms:.2%})" if ms else ""))
             if label == "block":
-                per_verify[k] = dict(lanes=lanes, device_ms=dev_ms[k], bound_ms=b_ms)
+                per_verify[k] = dict(lanes=lanes, device_ms=ms, bound_ms=b_ms)
+    svc = warm.pop("service")
+    svc.stop()
+    from lighthouse_tpu_torch.compile_service import service as csvc
+    csvc.clear_service(svc)
+    warm["paths"] = {k: {**v, "rung": list(v["rung"])} for k, v in warm["paths"].items()}
+    print(json.dumps({"warm_dispatch": warm}, default=str), flush=True)
     log(card)
 
     rows = []

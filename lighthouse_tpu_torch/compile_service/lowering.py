@@ -1,0 +1,137 @@
+"""The staged programs' argument shapes at a rung, and the warm-up of
+each: the port of the JAX package's ``compile_service/lowering.py``.
+
+ONE definition of what the verifier dispatches at bucket rung (B, K, M)
+(:func:`staged_dummy_args`, :func:`staged_captured`), shared by the
+compile service's warm-up and the tests. Every warm-up dispatches through
+``bls._run_stage``, so the stage graphs it captures are the ones traffic
+replays and a warmed rung is not fresh for the first real batch.
+
+The JAX module's ``hlo_instruction_count``, ``timed_lower_compile`` and
+``staged_instruction_counts`` measure XLA programs. Their counterpart
+here is each captured graph's node count, in ``graphs.status()``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..crypto.device import bls as dbls
+from ..crypto.device import fp, graphs
+
+STAGES = ("stage1", "stage2", "stage3")
+
+
+class StageWarmupError(RuntimeError):
+    """One stage of a rung's warm-up failed. Carries which stage raised
+    and the records of the stages that had already succeeded."""
+
+    def __init__(self, stage: str, partial: dict, cause: BaseException):
+        super().__init__(f"{stage}: {cause!r}")
+        self.stage = stage
+        self.partial = partial
+        self.__cause__ = cause
+
+
+def staged_dummy_args(B: int, K: int, M: int, device="cuda") -> dict:
+    """Zero tensors on ``device`` with exactly the (shape, dtype) of each
+    stage's arguments at rung (B, K, M): the keys of its graphs."""
+    i32, b8 = torch.int32, torch.bool
+
+    def z(*shape, dtype=i32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {
+        "stage1": (
+            z(B, 2, fp.NL),             # sig_x
+            z(B, dtype=b8),             # sig_larger
+            z(M, 2, 2, fp.NL),          # msg_u
+        ),
+        "stage2": (
+            z(B, K, 2, fp.NL),          # pk_xy
+            z(B, K, dtype=b8),          # pk_mask
+            z(B, 2, 2, fp.NL),          # sig_xy
+            z(B, 2),                    # rand
+            z(B, dtype=b8),             # set_mask
+        ),
+        "stage3": (
+            z(B, fp.NL),                # pk_x
+            z(B, fp.NL),                # pk_y
+            z(B, dtype=b8),             # pk_inf
+            z(B, 2, fp.NL),             # msg_aff_x
+            z(B, 2, fp.NL),             # msg_aff_y
+            z(B, dtype=b8),             # msg_aff_inf
+            z(2, fp.NL),                # acc_x
+            z(2, fp.NL),                # acc_y
+            z(dtype=b8),                # acc_inf
+        ),
+    }
+
+
+def staged_captured() -> dict:
+    """The module-level captured stage programs the verifier dispatches
+    (the counterpart of ``staged_jitted``): warming these is what fills
+    the graph cache real traffic replays."""
+    return {"stage1": dbls._stage1, "stage2": dbls._stage2, "stage3": dbls._stage3}
+
+
+def warm_staged(B: int, K: int, M: int, device="cuda") -> dict:
+    """Capture the three stage graphs at rung (B, K, M) on ``device`` by
+    dispatching each captured program on zero arguments through
+    ``bls._run_stage``. On the CPU nothing is captured: the stages run
+    once eagerly. The device's lock is held throughout, so no allocation
+    of this warm-up lands inside another thread's capture. Returns
+    ``{stage: {seconds, fresh}}``."""
+    out = {}
+    with graphs.device_lock(device):
+        args = staged_dummy_args(B, K, M, device)
+        progs = staged_captured()
+        for stage in STAGES:
+            try:
+                _, elapsed, fresh = dbls._run_stage(stage, progs[stage], *args[stage])
+            except Exception as e:
+                raise StageWarmupError(stage, out, e)
+            out[stage] = {"seconds": elapsed, "fresh": fresh}
+    return out
+
+
+def warm_gather(B: int, K: int, table) -> dict:
+    """Run the key table's gather once at rung (B, K) against ``table``'s
+    current tensors, through ``bls._run_stage`` under the stage label
+    "gather". The gather stays eager (``bls.verify_batch_raw_staged_gather``
+    says why), so this captures nothing: it records the shape as seen."""
+    dev, agg = table.device_arrays()
+    if dev is None:
+        raise StageWarmupError("gather", {}, RuntimeError("key table has no device rows"))
+    with graphs.device_lock(dev.device):
+        idx = torch.zeros((B, K), dtype=torch.int32, device=dev.device)
+        try:
+            _, elapsed, fresh = dbls._run_stage("gather", dbls._gather_fn, dev, agg, idx)
+        except Exception as e:
+            raise StageWarmupError("gather", {}, e)
+    return {"seconds": elapsed, "fresh": fresh}
+
+
+def warm_msm(n: int, device="cuda") -> dict:
+    """Capture the G1 MSM and the G2 sum graphs at point-count rung ``n``
+    through ``bls._run_stage`` under the shared stage label "msm" (their
+    argument shapes differ, so each has its own graph)."""
+    seconds, fresh = 0.0, False
+    with graphs.device_lock(device):
+        g1_args = (
+            torch.zeros((n, 2, fp.NL), dtype=torch.int32, device=device),     # pt_xy
+            torch.ones((n,), dtype=torch.bool, device=device),                # pt_inf
+            torch.zeros((n, 2), dtype=torch.int32, device=device),            # scalars
+        )
+        g2_args = (
+            torch.zeros((n, 2, 2, fp.NL), dtype=torch.int32, device=device),  # pt_xy
+            torch.ones((n,), dtype=torch.bool, device=device),                # pt_inf
+        )
+        for prog, args in ((dbls._msm, g1_args), (dbls._g2sum, g2_args)):
+            try:
+                _, elapsed, was_fresh = dbls._run_stage("msm", prog, *args)
+            except Exception as e:
+                raise StageWarmupError("msm", {}, e)
+            seconds += elapsed
+            fresh = fresh or was_fresh
+    return {"seconds": seconds, "fresh": fresh}

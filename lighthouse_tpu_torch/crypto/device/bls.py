@@ -43,21 +43,34 @@ Shapes (B sets, K max pubkeys per set, M distinct messages), as packed by
 The whole path stays on the device; the only read back is the verdict.
 The G1 MSM and G2 sum helpers (:func:`device_msm_g1`,
 :func:`device_sum_g2`) run ``msm.py`` on the device for host callers.
+
+Dispatch, as the JAX package's: each stage, the hashed program, the
+aggregate-verify program, the MSM and the G2 sum is one program per
+argument shape, here a CUDA graph captured at its first call
+(``graphs.CapturedProgram``, the port's ``jax.jit``) and replayed after.
+:func:`_run_stage` dispatches a stage, syncs at its boundary and says
+whether its shape was fresh (a capture). The gather and the message
+``take`` between stages 2 and 3 stay eager. With a compile service
+attached (``compile_service``), :class:`CudaBackend` pads each batch to a
+rung whose graphs are already captured.
 """
 
 from __future__ import annotations
 
 import secrets
+import threading
 import time
 
 import numpy as np
 import torch
 
+from ...compile_service import service as _csvc
+from ...verification_service.planner import round_up_bucket
 from ..bls import BlsError, Signature, parse_compressed_g2_x
 from ..cpu.curve import g2_generator
 from ..cpu.hash_to_curve import hash_to_g2
 from ..params import DST, G1_X, G1_Y, P
-from . import curve, fp, fp2, htc, key_table, pairing
+from . import curve, fp, fp2, graphs, htc, key_table, pairing
 from . import msm as msm_mod
 from .pairing import X_ABS
 
@@ -153,7 +166,8 @@ def _stage2_fn(pk_xy, pk_mask, sig_xy, rand_bits, set_mask):
 
     sig_pts = curve.from_affine(fp2, sig_xy[..., 0, :, :], sig_xy[..., 1, :, :])
     bits = _bits64(rand_bits) if rand_bits.shape[-1] == 2 else rand_bits
-    xbits = torch.from_numpy(_XBITS64).to(dev).expand(B, 64)
+    # cached on the device: a copy from host memory cannot be captured
+    xbits = fp.on_device("XBITS64", dev, lambda: _XBITS64).expand(B, 64)
     # the subgroup check's [|x|]Q and the randomizer's [r]Q share one
     # double-and-add loop over the stacked [2B] lanes
     both = curve.scalar_mul_bits(
@@ -215,16 +229,28 @@ def _take_messages(mx, my, minf, msg_idx):
 
 
 def _staged_verify(
-    pk_xy, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand_bits, set_mask
+    pk_xy, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand_bits, set_mask,
+    stages: dict | None = None,
 ):
-    """The three stages over the raw packer's planes -> a 0-dim bool tensor
-    on the device (no host sync inside). The counterpart of the JAX
-    package's ``_staged_verify`` and of its one-program twin
-    ``verify_batch_raw_fn``, which computes the same."""
-    sig_xy, mx, my, minf, sig_ok = _stage1_fn(sig_x, sig_larger, msg_u)
-    core = _verify_core(pk_xy, pk_mask, sig_xy, _take_messages(mx, my, minf, msg_idx),
-                        rand_bits, set_mask)
-    return core & torch.all(sig_ok | ~set_mask)
+    """The three stage programs over the raw packer's planes, each through
+    :func:`_run_stage` -> a 0-dim bool tensor on the device. The message
+    ``take`` between stages 2 and 3 and the final ``&`` stay outside the
+    programs, as in the JAX package's ``_staged_verify``; its one-program
+    twin ``verify_batch_raw_fn`` computes the same. ``stages``, when
+    given, receives ``{stage: {"seconds", "fresh"}}``."""
+    (sig_xy, mx, my, minf, sig_ok), s1, f1 = _run_stage(
+        "stage1", _stage1, sig_x, sig_larger, msg_u)
+    outs, s2, f2 = _run_stage(
+        "stage2", _stage2, pk_xy, pk_mask, sig_xy, rand_bits, set_mask)
+    pk_x, pk_y, pk_inf, acc_x, acc_y, acc_inf, flags_ok = outs
+    msg_aff = _take_messages(mx, my, minf, msg_idx)
+    pair_ok, s3, f3 = _run_stage(
+        "stage3", _stage3, pk_x, pk_y, pk_inf, *msg_aff, acc_x, acc_y, acc_inf)
+    if stages is not None:
+        for name, sec, fresh in (("stage1", s1, f1), ("stage2", s2, f2),
+                                 ("stage3", s3, f3)):
+            stages[name] = {"seconds": sec, "fresh": fresh}
+    return pair_ok & flags_ok & torch.all(sig_ok | ~set_mask)
 
 
 def verify_batch_fn(pk_xy, pk_mask, sig_xy, msg_xy, rand_bits, set_mask):
@@ -264,20 +290,82 @@ def _gather_fn(table, agg, pk_idx):
 
 def verify_batch_raw_staged_gather(
     table, agg, pk_idx, pk_mask, sig_x, sig_larger, msg_u, msg_idx,
-    rand_bits, set_mask,
+    rand_bits, set_mask, stages: dict | None = None,
 ):
     """Gathered variant of :func:`_staged_verify`: the pubkey planes come
     from the key table through :func:`_gather_fn`; the stages are the raw
     path's, so the verdict is too. The table must lie on the planes'
-    device: a table on another device raises, it is never gathered there."""
+    device: a table on another device raises, it is never gathered there.
+
+    The gather runs through :func:`_run_stage` under the JAX package's
+    stage label "gather", but eagerly, not as a graph: it is 3 launches,
+    and the table replaces its tensors whenever it grows (a copy on the
+    card) or inserts an aggregate (the region is cloned, so a held
+    snapshot never changes). A graph would keep the old addresses and
+    gather from freed memory. Its output is copied into stage 2's static
+    ``pk_xy`` like any other argument."""
     for name, t in (("table", table), ("aggregate region", agg)):
         if t.device != pk_idx.device:
             raise key_table.KeyTableError(
                 f"key {name} lies on {t.device}, the batch on {pk_idx.device}"
             )
-    pk_xy = _gather_fn(table, agg, pk_idx)
+    pk_xy, sg, fg = _run_stage("gather", _gather_fn, table, agg, pk_idx)
+    if stages is not None:
+        stages["gather"] = {"seconds": sg, "fresh": fg}
     return _staged_verify(pk_xy, pk_mask, sig_x, sig_larger, msg_u, msg_idx,
-                          rand_bits, set_mask)
+                          rand_bits, set_mask, stages=stages)
+
+
+# ---------------------------------------------------------------------------
+# The programs, one CUDA graph per argument shape (the JAX package's
+# ``jax.jit`` objects), and their dispatch
+# ---------------------------------------------------------------------------
+
+_stage1 = graphs.CapturedProgram(_stage1_fn, "stage1")
+_stage2 = graphs.CapturedProgram(_stage2_fn, "stage2")
+_stage3 = graphs.CapturedProgram(_stage3_fn, "stage3")
+verify_batch_hashed = graphs.CapturedProgram(verify_batch_hashed_fn, "verify_batch_hashed")
+# the MSM family: keyed on its own point-count rung, never on (B, K, M)
+_msm = graphs.CapturedProgram(msm_mod.msm_g1_fn, "msm_g1")
+_g2sum = graphs.CapturedProgram(msm_mod.sum_g2_fn, "sum_g2")
+
+# Arguments' (stage, device, (shape, dtype)...) seen by _run_stage: a
+# first sighting is "fresh", a capture (the JAX package's recompile).
+_seen_stage_shapes: set = set()
+_seen_lock = threading.Lock()
+# stage -> [dispatches, total seconds], every dispatch since import
+stage_seconds: dict = {}
+
+
+def reset_recompile_tracking() -> None:
+    """Forget the seen argument signatures (``graphs.reset()`` drops the
+    graphs themselves)."""
+    with _seen_lock:
+        _seen_stage_shapes.clear()
+
+
+def _run_stage(stage: str, fn, *args):
+    """One staged dispatch, the counterpart of the JAX package's
+    ``_run_stage``: ``fn(*args)`` under the device's lock, synced at the
+    stage boundary (as ``block_until_ready``), its wall added to
+    :data:`stage_seconds`. "Fresh" is the first sighting of the argument
+    signature, in place of the recompile counter; it is recorded only
+    after a dispatch that succeeded. Returns ``(out, elapsed_s, fresh)``."""
+    dev = args[0].device
+    key = (stage, str(dev), tuple((tuple(a.shape), str(a.dtype)) for a in args))
+    with graphs.device_lock(dev):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        elapsed = time.perf_counter() - t0
+    with _seen_lock:
+        fresh = key not in _seen_stage_shapes
+        _seen_stage_shapes.add(key)
+        rec = stage_seconds.setdefault(stage, [0, 0.0])
+        rec[0] += 1
+        rec[1] += elapsed
+    return out, elapsed, fresh
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +384,7 @@ def device_msm_g1(points, scalars, pad_n: int | None = None, device="cuda"):
     pts, sc = list(points), list(scalars)
     if len(pts) != len(sc):
         raise ValueError(f"{len(pts)} points but {len(sc)} scalars")
-    N = pad_n or _round_up(max(len(pts), 1))
+    N = pad_n or round_up_bucket(max(len(pts), 1))
     xy = np.zeros((N, 2, fp.NL), np.int32)
     inf = np.ones((N,), bool)
     sw = np.zeros((N, 2), np.int32)
@@ -304,38 +392,30 @@ def device_msm_g1(points, scalars, pad_n: int | None = None, device="cuda"):
         xy[: len(pts)], inf[: len(pts)] = curve.pack_g1(pts)
     for i, s in enumerate(sc):
         sw[i] = _u64_words(s)
-    oxy, oinf = msm_mod.msm_g1_fn(*_to_device((xy, inf, sw), device))
-    return curve.unpack_g1(oxy.cpu()[None].numpy(), oinf.cpu()[None].numpy())[0]
+    with graphs.device_lock(device):
+        (oxy, oinf), _s, _f = _run_stage("msm", _msm, *_to_device((xy, inf, sw), device))
+        oxy, oinf = oxy.cpu(), oinf.cpu()
+    return curve.unpack_g1(oxy[None].numpy(), oinf[None].numpy())[0]
 
 
 def device_sum_g2(points, pad_n: int | None = None, device="cuda"):
     """cpu G2Point list -> their sum on ``device`` as a cpu G2Point.
     Padding lanes are infinity; an empty list gives infinity."""
     pts = list(points)
-    N = pad_n or _round_up(max(len(pts), 1))
+    N = pad_n or round_up_bucket(max(len(pts), 1))
     xy = np.zeros((N, 2, 2, fp.NL), np.int32)
     inf = np.ones((N,), bool)
     if pts:
         xy[: len(pts)], inf[: len(pts)] = curve.pack_g2(pts)
-    oxy, oinf = msm_mod.sum_g2_fn(*_to_device((xy, inf), device))
-    return curve.unpack_g2(oxy.cpu()[None].numpy(), oinf.cpu()[None].numpy())[0]
+    with graphs.device_lock(device):
+        (oxy, oinf), _s, _f = _run_stage("msm", _g2sum, *_to_device((xy, inf), device))
+        oxy, oinf = oxy.cpu(), oinf.cpu()
+    return curve.unpack_g2(oxy[None].numpy(), oinf[None].numpy())[0]
 
 
 # ---------------------------------------------------------------------------
 # Host packing
 # ---------------------------------------------------------------------------
-
-# 48/96/192 are intermediate rungs for bin-packed sub-batches; the ladder
-# is the JAX package's, so both pad to the same shapes.
-def _round_up(
-    n: int,
-    choices=(1, 2, 4, 8, 16, 32, 48, 64, 96, 128, 192, 256, 512, 1024),
-) -> int:
-    for c in choices:
-        if n <= c:
-            return c
-    return ((n + 1023) // 1024) * 1024
-
 
 def _rand_scalar_words() -> tuple[int, int]:
     """A nonzero 64-bit scalar from ``secrets`` as (hi, lo) 32-bit words."""
@@ -372,7 +452,7 @@ def _dedup_messages(messages, pad_m: int | None):
     idx = np.zeros((len(messages),), np.int32)
     for i, m in enumerate(messages):
         idx[i] = uniq.setdefault(bytes(m), len(uniq))
-    M = pad_m or _round_up(len(uniq))
+    M = pad_m or round_up_bucket(len(uniq))
     if len(uniq) > M:
         raise ValueError(f"pad_m={M} smaller than {len(uniq)} distinct messages")
     msgs = sorted(uniq, key=uniq.get) + [b""] * (M - len(uniq))
@@ -411,8 +491,8 @@ def _pack_common(sets, B: int, K: int, rand_words):
 
 
 def _geometry(sets, pad_b, pad_k):
-    B = pad_b or _round_up(len(sets))
-    K = pad_k or _round_up(max(len(pks) for _, pks, _ in sets))
+    B = pad_b or round_up_bucket(len(sets))
+    K = pad_k or round_up_bucket(max(len(pks) for _, pks, _ in sets))
     return B, K
 
 
@@ -511,8 +591,8 @@ def pack_signature_sets_indexed(
         # masked out, unverified, under a True verdict
         raise ValueError(f"indices must match sets one-to-one "
                          f"({len(indices)} vs {len(sets)})")
-    B = pad_b or _round_up(len(sets))
-    K = pad_k or _round_up(max((len(ix) for ix in indices), default=1))
+    B = pad_b or round_up_bucket(len(sets))
+    K = pad_k or round_up_bucket(max((len(ix) for ix in indices), default=1))
     pk_idx = np.zeros((B, K), np.int32)
     pk_mask = np.zeros((B, K), bool)
     for i, ix in enumerate(indices):
@@ -553,8 +633,10 @@ class CudaBackend:
     to infinity.
 
     ``last_batch`` describes the latest batch of
-    :meth:`verify_signature_sets`: its path, padded shape, collapsed sets,
-    host seconds to resolve and pack, and bytes copied to the device."""
+    :meth:`verify_signature_sets`: its path, padded rung, whether every
+    stage replayed a captured graph (``warm``), each stage's seconds,
+    collapsed sets, host seconds to resolve and pack, and bytes copied to
+    the device."""
 
     name = "cuda"
 
@@ -581,6 +663,13 @@ class CudaBackend:
             if any(pk.is_infinity() for pk in pks):
                 return False
         raw_mode = all(isinstance(s, Signature) for s, _, _ in sets)
+        # every device action of the batch (the table's inserts, the pack's
+        # copies, the stages, the verdict read) under the device's lock, so
+        # none lands inside a graph capture on another thread
+        with graphs.device_lock(self.device):
+            return self._verify_locked(sets, raw_mode)
+
+    def _verify_locked(self, sets, raw_mode: bool) -> bool:
         t0 = time.perf_counter()
         resolved = None
         n_collapsed = 0
@@ -598,13 +687,28 @@ class CudaBackend:
                 path = "raw_gather"
         elif table is not None:
             table.count_raw(len(sets))  # bare points never gather
+        # warm-shape routing: with a compile service attached, pad up to a
+        # rung whose stage graphs are captured (the collapsed K counts)
+        svc = _csvc.get_active_service() if raw_mode else None
+        pad_b = pad_k = pad_m = warm_epoch = None
+        if svc is not None:
+            warm_epoch = svc.registry.epoch  # before the dispatch
+            if resolved is not None:
+                k_req = max(len(ix) for ix in resolved)
+            else:
+                k_req = max(len(pks) for _, pks, _ in sets)
+            m_req = len({bytes(m) for _, _, m in sets})
+            rung = svc.pads_for(len(sets), k_req, m_req)
+            if rung is not None:
+                pad_b, pad_k, pad_m = rung
         t1 = time.perf_counter()
-        kw = dict(rand_words=self.rand_words, device=self.device)
+        kw = dict(pad_b=pad_b, pad_k=pad_k, rand_words=self.rand_words,
+                  device=self.device)
         if resolved is not None:
             table.count_shipped(len(sets) - n_collapsed, n_collapsed)
-            args = pack_signature_sets_indexed(sets, resolved, **kw)
+            args = pack_signature_sets_indexed(sets, resolved, pad_m=pad_m, **kw)
         elif raw_mode:
-            args = pack_signature_sets_raw(sets, **kw)
+            args = pack_signature_sets_raw(sets, pad_m=pad_m, **kw)
         else:
             try:
                 points = [(s.point_or_infinity() if isinstance(s, Signature) else s,
@@ -612,20 +716,35 @@ class CudaBackend:
             except BlsError:
                 return False  # a signature x that is not on the curve
             args = pack_signature_sets_hashed(points, **kw)
-        self.last_batch = {
-            "path": path, "n_sets": len(sets), "b": int(args[0].shape[0]),
-            "k": int(args[0].shape[1]), "m": int(args[4 if raw_mode else 3].shape[0]),
-            "collapsed": n_collapsed, "resolve_s": t1 - t0,
-            "pack_s": time.perf_counter() - t1, "h2d_bytes": _nbytes(args),
-            "pubkey_bytes": _nbytes(args[:2]),
-        }
+        t2 = time.perf_counter()
+        stages: dict = {}
         if resolved is not None:
-            out = verify_batch_raw_staged_gather(table_dev, agg_dev, *args)
+            out = verify_batch_raw_staged_gather(table_dev, agg_dev, *args, stages=stages)
         elif raw_mode:
-            out = _staged_verify(*args)
+            out = _staged_verify(*args, stages=stages)
         else:
-            out = verify_batch_hashed_fn(*args)
-        return bool(out)
+            out, sec, fresh = _run_stage("hashed", verify_batch_hashed, *args)
+            stages["hashed"] = {"seconds": sec, "fresh": fresh}
+        verdict = bool(out)
+        rung = (int(args[0].shape[0]), int(args[0].shape[1]),
+                int(args[4 if raw_mode else 3].shape[0]))
+        self.last_batch = {
+            "path": path, "n_sets": len(sets), "b": rung[0], "k": rung[1],
+            "m": rung[2], "rung": rung,
+            # the gather is eager by design: "warm" is about the graphs
+            "warm": not any(st["fresh"] for name, st in stages.items()
+                            if name != "gather"),
+            "stages": {name: st["seconds"] for name, st in stages.items()},
+            "collapsed": n_collapsed, "resolve_s": t1 - t0, "pack_s": t2 - t1,
+            "h2d_bytes": _nbytes(args), "pubkey_bytes": _nbytes(args[:2]),
+        }
+        if svc is not None:
+            # organic warmth: the rung's graphs exist now, whatever the
+            # verdict; the cost feed is the pack plus the dispatch
+            svc.note_rung_verified(*rung, epoch=warm_epoch,
+                                   seconds=time.perf_counter() - t1,
+                                   n_sets=len(sets))
+        return verdict
 
     # -- single-set entry points (the batch path at B = 1) ------------------
 
@@ -657,7 +776,7 @@ class CudaBackend:
         if s_inf[0]:
             return False
         n = len(pks)
-        Bn = _round_up(n)
+        Bn = round_up_bucket(n)
         pk_xy = np.zeros((Bn, 2, fp.NL), np.int32)
         pk_inf = np.ones((Bn,), bool)
         pk_xy[:n] = curve.pack_g1(pks)[0]
@@ -666,8 +785,9 @@ class CudaBackend:
         msg_idx = np.zeros((Bn,), np.int32)
         msg_idx[:n] = idx
         msg_u = htc.messages_to_u(msgs, DST)
-        return bool(_aggregate_verify_device(
-            *_to_device((pk_xy, pk_inf, msg_u, msg_idx, sxy[0]), self.device)))
+        with graphs.device_lock(self.device):
+            return bool(_aggregate_verify_device(
+                *_to_device((pk_xy, pk_inf, msg_u, msg_idx, sxy[0]), self.device)))
 
     def _verify_one(self, sig, pks, message) -> bool:
         if sig.is_infinity():
@@ -675,7 +795,7 @@ class CudaBackend:
         return self.verify_signature_sets([(sig, pks, message)])
 
 
-def _aggregate_verify_device(pk_xy, pk_inf, msg_u, msg_idx, sig_xy):
+def _aggregate_verify_device_fn(pk_xy, pk_inf, msg_u, msg_idx, sig_xy):
     """The multi-pairing of :meth:`CudaBackend.aggregate_verify`: the
     signature's subgroup check, the messages mapped to G2, and one
     pairing check over the pubkey lanes plus (-g1, sig). Padding pubkey
@@ -687,3 +807,7 @@ def _aggregate_verify_device(pk_xy, pk_inf, msg_u, msg_idx, sig_xy):
     pair_ok = _stage3_fn(pk_xy[:, 0], pk_xy[:, 1], pk_inf,
                          *_take_messages(mx, my, minf, msg_idx), sx, sy, sinf)
     return pair_ok & sub_ok
+
+
+_aggregate_verify_device = graphs.CapturedProgram(_aggregate_verify_device_fn,
+                                                  "aggregate_verify")

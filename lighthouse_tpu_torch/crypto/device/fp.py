@@ -25,6 +25,7 @@ plain torch on whatever device its inputs lie on.
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -129,15 +130,24 @@ _HOST_TABLES = {
     "BAND_MASK": BAND_MASK,
 }
 _ON_DEVICE: dict = {}
+# Guards the fills of the device caches (this one and ``LinMap``'s): a
+# CUDA graph's warm-up fills them, and warm-ups run on more than one
+# thread (``graphs.py``). A filled entry is read without the lock.
+_FILL_LOCK = threading.Lock()
 
 
 def on_device(key, device, make) -> torch.Tensor:
-    """One device copy per (key, device) of the host array ``make()``."""
+    """One device copy per (key, device) of the host array ``make()``.
+    The copy is made at first use; a CUDA graph's capture only reads
+    entries its warm-up made."""
     k = (key, torch.device(device))
     t = _ON_DEVICE.get(k)
     if t is None:
-        t = torch.from_numpy(np.ascontiguousarray(make())).to(device)
-        _ON_DEVICE[k] = t
+        with _FILL_LOCK:
+            t = _ON_DEVICE.get(k)
+            if t is None:
+                t = torch.from_numpy(np.ascontiguousarray(make())).to(device)
+                _ON_DEVICE[k] = t
     return t
 
 
@@ -311,9 +321,13 @@ class LinMap:
         key = xs.device
         t = self._dev.get(key)
         if t is None:
-            c, off = self._host
-            t = (torch.from_numpy(c).to(key).unsqueeze(-1), torch.from_numpy(off).to(key))
-            self._dev[key] = t
+            with _FILL_LOCK:
+                t = self._dev.get(key)
+                if t is None:
+                    c, off = self._host
+                    t = (torch.from_numpy(c).to(key).unsqueeze(-1),
+                         torch.from_numpy(off).to(key))
+                    self._dev[key] = t
         c, off = t
         out = (xs.unsqueeze(-3) * c).sum(-2, dtype=torch.int32) + off
         return reduce_cols(out, self.bounds)

@@ -20,6 +20,9 @@ CPU. For CUDA tensors it launches the kernel or raises: there is no
 fallback. ``launches`` counts kernel launches, one per launch and nowhere
 else; ``lanes`` sums the lanes (Fp or Fp2 elements) of those launches and
 ``lane_hist`` counts launches by lane count, updated at the same place.
+The one exception is a CUDA graph (``graphs.py``): its capture's counts
+are rolled back, since nothing ran, and added again by :func:`credit` on
+every replay, which launches the captured kernels.
 K1 reduces inside the kernel (the ``reduce`` flag), so ``fp.mul`` on the
 card is one launch; the raw-column mode exists to hold the kernel against
 ``mul_cols_int8`` column for column.
@@ -80,6 +83,35 @@ def _count(name: str, n: int) -> None:
     launches[name] += 1
     lanes[name] += n
     lane_hist[name][n] += 1
+
+
+def snapshot() -> dict:
+    """A copy of the counters: {kernel: (launches, lanes, lane histogram)}."""
+    return {k: (launches[k], lanes[k], Counter(lane_hist[k])) for k in launches}
+
+
+def since(snap: dict) -> dict:
+    """The counts added since ``snap``, in :func:`snapshot`'s form."""
+    return {k: (launches[k] - n, lanes[k] - l, lane_hist[k] - h)
+            for k, (n, l, h) in snap.items()}
+
+
+def restore(snap: dict) -> None:
+    """Set the counters back to ``snap``."""
+    for k, (n, l, h) in snap.items():
+        launches[k], lanes[k] = n, l
+        lane_hist[k].clear()
+        lane_hist[k].update(h)
+
+
+def credit(delta: dict) -> None:
+    """Add ``delta`` (from :func:`since`) to the counters: the launches of
+    one replay of a CUDA graph, which the wrappers counted while the graph
+    was captured (``graphs.py``) and which launch again on every replay."""
+    for k, (n, l, h) in delta.items():
+        launches[k] += n
+        lanes[k] += l
+        lane_hist[k].update(h)
 
 
 # ---------------------------------------------------------------------------

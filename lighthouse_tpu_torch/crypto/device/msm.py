@@ -26,20 +26,18 @@ from __future__ import annotations
 
 import torch
 
+from ...compile_service.service import MSM_RUNGS
 from . import curve, fp, fp2
 
 WINDOW_BITS = 4
 N_WINDOWS = 64 // WINDOW_BITS        # 16, most significant first
 N_BUCKETS = (1 << WINDOW_BITS) - 1   # 15; digit 0 occupies no bucket
 
-# Padded point counts N the MSM and G2 sum are run at (the JAX package's
-# compile-service ladder, ``MSM_RUNGS``): 512 covers a mainnet committee.
-MSM_RUNGS = (64, 128, 256, 512)
-
 
 def msm_rung(n: int):
-    """The smallest rung of :data:`MSM_RUNGS` holding ``n`` points, or
-    None above the ladder."""
+    """The smallest rung of the compile service's ``MSM_RUNGS`` (the
+    padded point counts the MSM and G2 sum are warmed at) holding ``n``
+    points, or None above the ladder."""
     return next((r for r in MSM_RUNGS if r >= n), None)
 
 

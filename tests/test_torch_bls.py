@@ -93,7 +93,7 @@ def _verdicts(jsets, psets):
 
 def test_round_up_and_bits64_match_jax():
     for n in list(range(1, 300)) + [511, 512, 513, 1500, 5000]:
-        assert dbls._round_up(n) == jdbls._round_up(n)
+        assert dbls.round_up_bucket(n) == jdbls._round_up(n)
     words = np.array([[-2 ** 31, 5], [-1, -2], [0x7FFFFFFF, 0], [0x1234, -0x5678]],
                      np.int32)
     got = dbls._bits64(torch.tensor(words)).numpy()

@@ -37,6 +37,8 @@ def test_no_forbidden_import_statements():
     assert len(sources) >= 18
     names = {str(p.relative_to(PKG)) for p in sources}
     assert {"crypto/device/key_table.py", "crypto/device/msm.py",
+            "crypto/device/graphs.py", "compile_service/service.py",
+            "compile_service/lowering.py", "verification_service/planner.py",
             "utils/slot_clock.py"} <= names
     bad = []
     for path in sources:
@@ -66,7 +68,9 @@ print(json.dumps(added))
     added = json.loads(out.stdout.strip().splitlines()[-1])
     ported = [m for m in added if m.startswith("lighthouse_tpu_torch.")]
     for mod in ("crypto.device.kernels", "crypto.device.bls", "crypto.device.key_table",
-                "crypto.device.msm", "utils.slot_clock"):
+                "crypto.device.msm", "crypto.device.graphs", "compile_service.service",
+                "compile_service.lowering", "verification_service.planner",
+                "utils.slot_clock"):
         assert f"lighthouse_tpu_torch.{mod}" in ported
     leaked = [m for m in added if _forbidden(m) or m.startswith("jax")]
     assert not leaked, leaked

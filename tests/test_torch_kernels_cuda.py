@@ -143,3 +143,158 @@ def test_key_table_grown_on_card_gathers_as_on_cpu(dev):
     got = _gather_fn(gdev, gagg, idx.to(dev))
     assert torch.equal(got.cpu(), _gather_fn(cdev, cagg, idx))
     assert torch.equal(gdev.cpu(), cdev)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (``graphs.CapturedProgram``): captures against eager runs
+# ---------------------------------------------------------------------------
+
+def test_captured_k1_replays_equal_to_eager(dev):
+    """One K1 launch from the ctypes library, captured into a graph on the
+    torch stream, replays equal to an eager launch on new inputs."""
+    from lighthouse_tpu_torch.crypto.device import graphs
+
+    rng = np.random.default_rng(21)
+    x, y, x2, y2 = (torch.from_numpy(_limbs(rng, 192)).to(dev) for _ in range(4))
+    prog = graphs.CapturedProgram(kernels.fp_mul, "test_k1")
+    assert torch.equal(prog(x, y), kernels.fp_mul_plain(x, y))  # the capture
+    g = prog.graph_for(x, y)
+    assert g is not None and g.nodes >= 1 and g.replays == 0
+    kernels.reset_launches()
+    got = prog(x2, y2)
+    assert kernels.launches["fp_mul_cols"] == 1  # credited by the replay
+    assert torch.equal(got, kernels.fp_mul(x2, y2)) and g.replays == 1
+    assert kernels.lane_hist["fp_mul_cols"] == {192: 2}
+
+
+def _stage_batch(dev, signer=77, seed=5):
+    """The raw planes of a 2-set batch (one single-signer set, one
+    aggregate of two) with seeded random words."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.device.bls import pack_signature_sets_raw
+
+    sks = [bls.SecretKey(signer + i) for i in range(2)]
+    pks = [sk.public_key().point for sk in sks]
+    m1, m2 = bytes([seed]) * 32, bytes([seed + 1]) * 32
+    sets = [(sks[0].sign(m1), [pks[0]], m1),
+            (bls.SecretKey(2 * signer + 1).sign(m2), pks, m2)]
+    sets = [(bls.Signature.deserialize(s.serialize()), k, m) for s, k, m in sets]
+    rng = np.random.default_rng(seed)
+
+    def words():
+        r = int(rng.integers(1, 2 ** 63, dtype=np.int64))
+        return (r >> 32) & 0xFFFFFFFF, r & 0xFFFFFFFF
+
+    return pack_signature_sets_raw(sets, rand_words=words, device=dev)
+
+
+def test_captured_stages_equal_eager_and_credit_eager_counts(dev):
+    """Each stage's capture and its replay equal the eager stage function
+    on the same planes (``torch.equal``), and a replay credits exactly the
+    launches, lanes and lane counts of the eager run."""
+    from lighthouse_tpu_torch.crypto.device import bls as dbls
+
+    pk_xy, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand, set_mask = _stage_batch(dev)
+    s1 = (sig_x, sig_larger, msg_u)
+
+    def stage_args(out1, out2):
+        sig_xy, mx, my, minf, _ok = out1
+        pk_x, pk_y, pk_inf, acc_x, acc_y, acc_inf, _f = out2
+        return {
+            "stage1": s1,
+            "stage2": (pk_xy, pk_mask, sig_xy, rand, set_mask),
+            "stage3": (pk_x, pk_y, pk_inf, *dbls._take_messages(mx, my, minf, msg_idx),
+                       acc_x, acc_y, acc_inf),
+        }
+
+    out1 = dbls._stage1_fn(*s1)
+    out2 = dbls._stage2_fn(pk_xy, pk_mask, out1[0], rand, set_mask)
+    args = stage_args(out1, out2)
+    for name, fn, prog in (("stage1", dbls._stage1_fn, dbls._stage1),
+                           ("stage2", dbls._stage2_fn, dbls._stage2),
+                           ("stage3", dbls._stage3_fn, dbls._stage3)):
+        kernels.reset_launches()
+        want = fn(*args[name])
+        eager = kernels.snapshot()
+        want = want if isinstance(want, tuple) else (want,)
+        prog(*args[name])  # captures, unless an earlier test did
+        kernels.reset_launches()
+        got = prog(*args[name])  # a replay
+        assert kernels.snapshot() == eager, name
+        got = got if isinstance(got, tuple) else (got,)
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (name, i)
+    assert bool(want[0]) is True  # the batch verifies
+
+
+def test_replay_uses_new_inputs(dev):
+    """A replay copies each argument into its static input: the stage-2
+    graph's static ``rand_bits`` holds the latest batch's plane, and a
+    batch signed by other keys gives its own verdict through the same
+    graphs."""
+    from lighthouse_tpu_torch.crypto.device import bls as dbls
+
+    a = _stage_batch(dev, signer=91, seed=7)
+    b = _stage_batch(dev, signer=93, seed=9)
+    assert not torch.equal(a[6], b[6])
+    for planes in (a, b):
+        assert bool(dbls._staged_verify(*planes)) is True
+        out1 = dbls._stage1(*planes[2:5])
+        args2 = (planes[0], planes[1], out1[0], planes[6], planes[7])
+        dbls._stage2(*args2)
+        g = dbls._stage2.graph_for(*args2)
+        assert g is not None and torch.equal(g.inputs[3], planes[6])
+    bad = list(b)
+    bad[4] = a[4]  # b's signatures over a's messages
+    assert bool(dbls._staged_verify(*bad)) is False
+    assert bool(dbls._staged_verify(*a)) is True
+
+
+def test_backend_counts_equal_between_capture_and_replay(dev):
+    """The first verify at a rung runs the eager warm-ups (counted); later
+    verifies replay the graphs (credited): the same counts, and
+    ``last_batch`` says which it was."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.device import graphs
+    from lighthouse_tpu_torch.crypto.device.bls import CudaBackend
+
+    sks = [bls.SecretKey(301 + i) for i in range(3)]
+    m = b"\x55" * 32
+    sets = [(bls.Signature.deserialize(sk.sign(m).serialize()),
+             [sk.public_key().point], m) for sk in sks]  # B=4 K=1 M=1
+    backend = CudaBackend(device=dev)
+    counts = []
+    for _ in range(3):
+        kernels.reset_launches()
+        assert backend.verify_signature_sets(sets) is True
+        counts.append((kernels.snapshot(), backend.last_batch["warm"]))
+    assert counts[0][0] == counts[1][0] == counts[2][0]
+    assert [w for _, w in counts][1:] == [True, True]
+    st = graphs.status()
+    assert st["graphs"] >= 3 and st["nodes"] > 0 and st["pool_bytes"] > 0
+
+
+def test_hashed_and_aggregate_verify_programs_capture_and_replay(dev):
+    """The hashed program (bare points) and the aggregate-verify program,
+    each captured at its first call and replayed after: right verdicts on
+    valid and wrong inputs through the same graphs."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.device.bls import CudaBackend
+
+    sks = [bls.SecretKey(401 + i) for i in range(2)]
+    pks = [sk.public_key() for sk in sks]
+    ms = [b"\x61" * 32, b"\x62" * 32]
+    sigs = [sk.sign(m) for sk, m in zip(sks, ms)]
+    backend = CudaBackend(device=dev)
+    sets = [(s.point_or_infinity(), [pk.point], m) for s, pk, m in zip(sigs, pks, ms)]
+    for want in (True, True):  # the capture, then a replay
+        assert backend.verify_signature_sets(sets) is want
+    assert backend.last_batch["path"] == "hashed" and backend.last_batch["warm"]
+    assert backend.verify_signature_sets([sets[0], (sets[1][0], sets[1][1], ms[0])]) is False
+    agg = bls.AggregateSignature.infinity()
+    for s in sigs:
+        agg.add_assign(s)
+    for _ in range(2):
+        assert agg.aggregate_verify(ms, pks, device=str(dev)) is True
+    assert agg.aggregate_verify(ms[::-1], pks, device=str(dev)) is False
