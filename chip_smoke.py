@@ -50,7 +50,18 @@ plain torch version on the card. Phases, in order; any failure raises:
    stale-input sequence (valid, poisoned, valid, other signers valid and
    poisoned) on one rung; the MSM and G2 sum through their graphs equal to
    the host fold;
-10. kernel timings where the path runs them: each kernel checked again and
+10. concurrent warm: the phase-9 service's worker is asked for two cold
+   rungs of ``DEFAULT_RUNGS`` and captures them while this thread serves
+   the warm gossip and gathered block batches in turns: each wall (under
+   ``WARM_WALL_LIMIT_S``), the lock waits, each capture's span and how far
+   the verifies overlapped the captures; the counters must end at the
+   verifies' eager counts plus the worker's warm-ups;
+11. engines: the gossip batch verified under each of ``ENGINE_TRIPLES``
+   (the composed Fp2 and line steps over each ``fp.mul`` engine): valid
+   (a capture, then a replay) and poisoned, each triple's capture
+   seconds, nodes and walls; then the default triple's graphs replay
+   with no new capture;
+12. kernel timings where the path runs them: each kernel checked again and
    timed (device ms per launch, launches queued back to back behind a
    device sleep, CUDA events) with its plain version and its bound at 1
    lane, at the most frequent and at the largest lane count of the block
@@ -58,7 +69,7 @@ plain torch version on the card. Phases, in order; any failure raises:
    and at the shapes earlier versions timed; beside them the launch
    floor, the device time per launch of a one-element in-place add
    queued the same way;
-11. two more valid verifies, graph replays, of each raw batch, of the
+13. two more valid verifies, graph replays, of each raw batch, of the
    gathered block batch and of the collapsed block batch: one timed by
    CUDA events around the replays, one under torch.profiler (which sees
    the kernels inside the graphs): the device busy share, and for the raw
@@ -79,13 +90,15 @@ from ``--seed``; the host signer (pure Python) is independent of the
 device hash-to-curve.
 
     python3 chip_smoke.py            # the full check (one card)
-    python3 chip_smoke.py --quick    # build, kernel checks and timings, graphs, tiny verifies, MSM
+    python3 chip_smoke.py --quick    # build, kernel checks and timings, graphs, tiny verifies,
+                                     # a concurrent warm-up, the engine triples, MSM
     python3 chip_smoke.py --time-only DIR   # time the kernels of the checkout at DIR
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -119,6 +132,17 @@ REGISTRY_SIZE = 1 << 19
 # so the whole ladder would take minutes); and waits this long for them.
 WARM_DEFAULT_RUNGS = 3
 WARM_TIMEOUT_S = 600
+# The concurrent-warm phase queues these rungs of DEFAULT_RUNGS (by index;
+# cold after phase 9) on the compile service's worker while this thread
+# serves warm batches, whose walls must stay under WARM_WALL_LIMIT_S (a
+# stage-3 capture alone takes 2.4 s or more on an H100).
+CONCURRENT_COLD = (3, 5)
+WARM_WALL_LIMIT_S = 1.0
+# The engine phase's (fp, fp2, line) engine triples, each verified on the
+# gossip batch (its first verify captures the rung under that triple).
+ENGINE_TRIPLES = (("toeplitz_int32", "composed", "composed"),
+                  ("matmul_int8", "composed", "composed"),
+                  ("pallas_int8", "composed", "composed"))
 # The MSM phase's point counts: the top MSM rung (a mainnet committee) for
 # G1 with random u64 scalars, and 128 points for the G2 sum.
 MSM_N = 512
@@ -153,29 +177,41 @@ def card_line() -> str:
 def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     """Device milliseconds per call of ``fn``: ``reps`` calls queued behind a
     device-side sleep, so that the card runs them back to back whatever the
-    host's speed, timed by CUDA events; the median of ``rounds``. Raises if
-    the host did not finish queueing before the sleep ended."""
+    host's speed, timed by CUDA events; the median of ``rounds``. A round
+    counts only if the host finished queueing before the sleep ended: one
+    that did not is run again behind a sleep twice as long (the garbage
+    collector is held off while a round queues), and the third such round
+    in a row raises."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     sleep_s = 3 * reps * (time.perf_counter() - t0) + 1e-3
-    times = []
-    for _ in range(rounds):
+    times, late = [], 0
+    while len(times) < rounds:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(int(sleep_s * SLEEP_HZ))
-        t0 = time.perf_counter()
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        queued_s = time.perf_counter() - t0
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            queued_s = time.perf_counter() - t0
+        finally:
+            gc.enable()
         b.synchronize()
         if queued_s > sleep_s:
-            raise RuntimeError(f"timing: queueing took {queued_s:.4f} s, longer "
-                               f"than the {sleep_s:.4f} s device sleep")
+            late += 1
+            if late == 3:
+                raise RuntimeError(f"timing: queueing took {queued_s:.4f} s, longer "
+                                   f"than the {sleep_s:.4f} s device sleep, 3 rounds in a row")
+            sleep_s *= 2
+            continue
+        late = 0
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
@@ -924,7 +960,7 @@ def start_service(plan, dev):
                              f"{json.dumps(svc.status(), default=str)[:2000]}")
     wall = time.perf_counter() - t0
     st = svc.status()
-    cold = [r for r in plan if [*r, csvc.IMPL] not in st["warm_rungs"]]
+    cold = [r for r in plan if [*r, svc._impl()] not in st["warm_rungs"]]
     if st["failed_total"] or cold:
         raise AssertionError(f"compile service: rungs {cold} cold, "
                              f"{st['failed_total']} failures: {st['last_error']}")
@@ -1037,6 +1073,187 @@ def served_sum(label, fn, want, eager_hist) -> None:
         raise AssertionError(f"{label}: credited lane counts differ from the eager run")
     log(f"{label} through its graph: equal to the host fold, {dt:.4f} s; credited "
         f"launches {json.dumps(dict(kernels.launches))} equal the eager run's")
+
+
+def _add_hist(into: dict, hist: dict) -> None:
+    """Add a lane histogram {kernel: {lanes: launches}} into ``into``."""
+    for k, h in hist.items():
+        for n, c in h.items():
+            into.setdefault(k, {})
+            into[k][n] = into[k].get(n, 0) + c
+
+
+def concurrent_warm_phase(svc, backend, cold_rungs, traffic, dev) -> dict:
+    """Queue ``cold_rungs`` on the attached service's worker and, while it
+    warms and captures them, verify the warm ``traffic`` batches from this
+    thread in turns, ``(label, sets, want, path, eager lane histogram)``
+    each. Prints every wall, the lock waits and how far the verifies
+    overlapped the captures. Fails on a wrong verdict, a verify that
+    captured or took another path, a wall of WARM_WALL_LIMIT_S or more, no
+    verify overlapping a capture, or counters other than the verifies'
+    eager counts plus the worker's warm-ups (each equal to its graph's
+    credit)."""
+    from lighthouse_tpu_torch.compile_service import lowering
+    from lighthouse_tpu_torch.crypto.device import graphs, kernels
+
+    progs = lowering.staged_captured()
+
+    def stage_graphs():
+        return [progs[st].graph_for(*lowering.staged_dummy_args(*r, device=dev)[st])
+                for r in cold_rungs for st in lowering.STAGES]
+
+    if any(g is not None for g in stage_graphs()):
+        raise AssertionError(f"concurrent warm: a stage of {cold_rungs} is captured already")
+    before = {id(g) for p in list(graphs._PROGRAMS) for g in p._graphs.values()}
+    waits0 = graphs.status()["lock_wait_s"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t_start = time.perf_counter()
+    for r in cold_rungs:
+        svc.request(*r)
+    verifies, want_hist = [], {}
+    while True:
+        st = svc.status()
+        if st["in_flight"] is None and not st["queue"]:
+            break
+        for label, sets, want, path, hist in traffic:
+            t0 = time.perf_counter()
+            got = backend.verify_signature_sets(sets)
+            t1 = time.perf_counter()
+            lb = backend.last_batch
+            if got is not want or not lb["warm"] or lb["path"] != path:
+                raise AssertionError(f"concurrent warm, {label}: verdict {got} (want {want}), "
+                                     f"warm {lb['warm']}, path {lb['path']}")
+            stages = {"resolve": lb["resolve_s"], "pack": lb["pack_s"], **lb["stages"]}
+            stages["rest"] = t1 - t0 - sum(stages.values())
+            verifies.append((label, t0, t1, stages))
+            _add_hist(want_hist, hist)
+    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError("concurrent warm: the service did not finish its rungs")
+    span = time.perf_counter() - t_start
+    st = svc.status()
+    if st["failed_total"] or any([*r, svc._impl()] not in st["warm_rungs"] for r in cold_rungs):
+        raise AssertionError(f"concurrent warm: rungs not warmed: {st['last_error']}")
+    # every graph the worker captured in this phase: the rungs' stages and
+    # the extras it warms with them (an MSM rung not yet warm)
+    cold = [g for p in list(graphs._PROGRAMS) for g in p._graphs.values()
+            if id(g) not in before]
+    if any(g not in cold for g in stage_graphs()):
+        raise AssertionError("concurrent warm: a stage graph of the cold rungs is missing")
+    for g in cold:
+        _add_hist(want_hist, {k: dict(h) for k, (_n, _l, h) in g.credit.items()})
+    got_hist = {k: dict(h) for k, h in kernels.lane_hist.items() if h}
+    if got_hist != {k: h for k, h in want_hist.items() if h}:
+        raise AssertionError("concurrent warm: the counters differ from the verifies' eager "
+                             "counts plus the worker's warm-ups")
+    spans = sorted((g.steps["warmup"][0], g.steps["check"][1]) for g in cold)
+    overlap = [sum(max(0.0, min(t1, b) - max(t0, a)) for a, b in spans)
+               for _l, t0, t1, _s in verifies]
+    walls = [t1 - t0 for _l, t0, t1, _s in verifies]
+    busy = sum(b - a for a, b in spans)
+
+    def beside(t0, t1):
+        """The capture steps (and seconds) a verify ran beside."""
+        out = {}
+        for g in cold:
+            for step, (a, b) in g.steps.items():
+                ov = min(t1, b) - max(t0, a)
+                if ov > 0:
+                    out[step] = round(out.get(step, 0.0) + ov, 4)
+        return out
+
+    waits = graphs.status()["lock_wait_s"]
+    dwaits = {kind: {d: v - waits0.get(kind, {}).get(d, 0.0) for d, v in per.items()}
+              for kind, per in waits.items()}
+    for (label, t0, t1, stages), ov in zip(verifies, overlap):
+        log(f"  concurrent {label}: {t1 - t0:.4f} s at +{t0 - t_start:.2f} s "
+            f"({ov:.4f} s beside a capture: {json.dumps(beside(t0, t1))}); host and stage s "
+            f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+    for p in sorted(graphs._PROGRAMS, key=lambda p: p.name):
+        for key, g in list(p._graphs.items()):
+            if g in cold:
+                shapes = " ".join("x".join(map(str, shape)) for shape, _dt in key[2])
+                steps = ", ".join(f"{k} +{a - t_start:.2f}..+{b - t_start:.2f}"
+                                  for k, (a, b) in g.steps.items())
+                log(f"  worker captured {p.name} [{shapes}]: warm-up {g.warmup_s:.3f} s, "
+                    f"capture {g.capture_s:.3f} s (instantiate {g.instantiate_s:.3f}), "
+                    f"{g.nodes} nodes; steps (s) {steps}")
+    n_over = sum(1 for ov in overlap if ov > 0)
+    by_label = {}
+    for (label, *_r), w in zip(verifies, walls):
+        by_label.setdefault(label, []).append(w)
+    log(f"concurrent warm: {len(verifies)} warm verifies in {span:.2f} s while the worker "
+        f"warmed {cold_rungs} ({busy:.2f} s of warm-ups and captures); {n_over} verifies "
+        f"overlapped a capture for {sum(overlap):.2f} s; walls max {max(walls):.4f} s, "
+        f"median by batch {json.dumps({k: round(statistics.median(v), 4) for k, v in by_label.items()})}; "
+        f"lock waits in this phase {json.dumps(dwaits)}; verdicts right, counters equal "
+        f"the eager counts plus the warm-ups")
+    if n_over == 0:
+        raise AssertionError("concurrent warm: no verify overlapped a capture")
+    if max(walls) >= WARM_WALL_LIMIT_S:
+        raise AssertionError(f"concurrent warm: a warm verify took {max(walls):.3f} s "
+                             f"(limit {WARM_WALL_LIMIT_S} s)")
+    return {"cold_rungs": [list(r) for r in cold_rungs], "span_s": span,
+            "capture_busy_s": busy, "verifies": len(verifies), "overlapping": n_over,
+            "overlap_s": sum(overlap), "wall_max_s": max(walls),
+            "walls": {k: v for k, v in by_label.items()}, "lock_waits_s": dwaits}
+
+
+def engine_phase(backend, sets, dev) -> dict:
+    """The gossip batch verified under each of ENGINE_TRIPLES: a first
+    valid verify (which captures the rung's stage graphs under the
+    triple), a replayed valid verify and a replayed poisoned one (the
+    first two signatures swapped: one committee, so the same messages and
+    rung, wrong signers); prints the captures' seconds and nodes and each
+    wall. Then the default triple's graphs must still replay, with no new
+    capture."""
+    from lighthouse_tpu_torch.compile_service import lowering
+    from lighthouse_tpu_torch.crypto.device import fp, fp2, graphs, kernels, pairing
+
+    bad = list(sets)
+    bad[0] = (sets[1][0], sets[0][1], sets[0][2])
+    bad[1] = (sets[0][0], sets[1][1], sets[1][2])
+    progs = lowering.staged_captured()
+    out = {}
+    n0 = graphs.status()["graphs"]
+    for triple in ENGINE_TRIPLES:
+        walls = []
+        with fp.impl(triple[0]), fp2.impl(triple[1]), pairing.line_impl(triple[2]):
+            for label, batch, want in (("first", sets, True), ("valid", sets, True),
+                                       ("poisoned", bad, False)):
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                got = backend.verify_signature_sets(batch)
+                walls.append(time.perf_counter() - t0)
+                lb = backend.last_batch
+                if got is not want or lb["warm"] is not (label != "first"):
+                    raise AssertionError(f"engines {triple}, {label}: verdict {got} (want "
+                                         f"{want}), warm {lb['warm']}")
+            launches = dict(kernels.launches)
+            args = lowering.staged_dummy_args(*lb["rung"], device=dev)
+            gs = [progs[stg].graph_for(*args[stg]) for stg in lowering.STAGES]
+        rec = {"rung": list(lb["rung"]),
+               "capture_s": sum(g.capture_s for g in gs),
+               "warmup_s": sum(g.warmup_s for g in gs),
+               "nodes": sum(g.nodes for g in gs),
+               "stage_nodes": [g.nodes for g in gs],
+               "first_wall_s": walls[0], "wall_s": walls[1], "poisoned_wall_s": walls[2],
+               "launches": launches}
+        out["/".join(triple)] = rec
+        log(f"  engines {'/'.join(triple)} at rung {lb['rung']}: captures "
+            f"{rec['capture_s']:.3f} s (eager warm-ups {rec['warmup_s']:.3f} s), "
+            f"{rec['nodes']} nodes {rec['stage_nodes']}; walls: first {walls[0]:.3f} s, "
+            f"replay {walls[1]:.4f} s, poisoned {walls[2]:.4f} s (False); launches per "
+            f"replay {json.dumps(launches)}")
+    n1 = graphs.status()["graphs"]
+    got = backend.verify_signature_sets(sets)
+    if got is not True or not backend.last_batch["warm"] or graphs.status()["graphs"] != n1:
+        raise AssertionError("engines: the default triple's graphs did not replay as before")
+    log(f"engines: {len(ENGINE_TRIPLES)} triples right, valid and poisoned; "
+        f"{n1 - n0} new graphs; the default triple "
+        f"{'/'.join(graphs.engines())} still replays with no new capture")
+    return out
 
 
 def warm_phase(rng, dev, backend, table, batches, path_rungs, eager, refs) -> dict:
@@ -1158,8 +1375,11 @@ def main() -> int:
         capture_table(plan, svc.status()["msm_warm"], dev)
         graph_summary("captured graphs")
         stale_input_check(rng, backend, sets)
-        gwall, _c, _h = timed_verify(backend, gsets, "quick gossip (B=64) served", True,
-                                     warm=True)
+        gwall, _c, ghist = timed_verify(backend, gsets, "quick gossip (B=64) served", True,
+                                        warm=True)
+        concurrent_warm_phase(svc, backend, [(32, 1, 8)],
+                              [("gossip", gsets, True, "raw_staged", ghist)], dev)
+        engine_phase(backend, gsets, dev)
         profile_verify(backend, gsets, "quick gossip served", gwall)
         registry = registry_points(64)
         table = key_table_phase(registry, dev)
@@ -1253,15 +1473,34 @@ def main() -> int:
                       list(dict.fromkeys(path_rungs)), hists, refs)
     log(card)
 
-    log("phase 10 every kernel checked against its plain version and timed at "
+    from lighthouse_tpu_torch.compile_service.service import DEFAULT_RUNGS
+
+    cold = [DEFAULT_RUNGS[i] for i in CONCURRENT_COLD]
+    log(f"phase 10 concurrent warm: the service's worker captures the cold rungs {cold} "
+        "while this thread serves warm gossip and gathered block batches")
+    key_table.set_table(table)
+    with held_collapse(table):
+        warm["concurrent"] = concurrent_warm_phase(
+            warm["service"], backend, cold,
+            [("gossip", sets, True, "raw_staged", ghist),
+             ("gathered block", gbsets, True, "raw_gather", hists["gathered block"])], dev)
+    key_table.clear_table(table)
+    log(card)
+
+    log("phase 11 engines: the gossip batch under the composed engine triples")
+    warm["engines"] = engine_phase(backend, sets, dev)
+    log(card)
+
+    log("phase 12 every kernel checked against its plain version and timed at "
         "each path's lane counts (device ms per launch, launches queued back to back)")
+    gc.collect()  # the engine phase's garbage, before the timed queueing
     shapes = path_shapes(hists)
     print_shapes(shapes, hists)
     timings = time_kernels(rng, dev, shapes, errs)
     launch_floor(dev, card)
     # profiled after every timed run: a torch.profiler session slows the
     # launches that follow it (35-45% on an H100)
-    log("phase 11 profiles (graph replays)")
+    log("phase 13 profiles (graph replays)")
     key_table.clear_table(table)  # the raw batches' keys are not the registry's
     served = {k: v["wall"] for k, v in warm["paths"].items()}
     gdev = profile_verify(backend, sets, "gossip valid", served["gossip"])

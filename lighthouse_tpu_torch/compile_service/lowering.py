@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..crypto.device import bls as dbls
-from ..crypto.device import fp, graphs
+from ..crypto.device import fp
 
 STAGES = ("stage1", "stage2", "stage3")
 
@@ -79,19 +79,19 @@ def warm_staged(B: int, K: int, M: int, device="cuda") -> dict:
     """Capture the three stage graphs at rung (B, K, M) on ``device`` by
     dispatching each captured program on zero arguments through
     ``bls._run_stage``. On the CPU nothing is captured: the stages run
-    once eagerly. The device's lock is held throughout, so no allocation
-    of this warm-up lands inside another thread's capture. Returns
-    ``{stage: {seconds, fresh}}``."""
+    once eagerly. No lock is held across the rung: each stage's capture
+    takes the device's capture lock for that stage alone
+    (``graphs.CapturedProgram``), and other threads replay warm graphs
+    meanwhile. Returns ``{stage: {seconds, fresh}}``."""
     out = {}
-    with graphs.device_lock(device):
-        args = staged_dummy_args(B, K, M, device)
-        progs = staged_captured()
-        for stage in STAGES:
-            try:
-                _, elapsed, fresh = dbls._run_stage(stage, progs[stage], *args[stage])
-            except Exception as e:
-                raise StageWarmupError(stage, out, e)
-            out[stage] = {"seconds": elapsed, "fresh": fresh}
+    args = staged_dummy_args(B, K, M, device)
+    progs = staged_captured()
+    for stage in STAGES:
+        try:
+            _, elapsed, fresh = dbls._run_stage(stage, progs[stage], *args[stage])
+        except Exception as e:
+            raise StageWarmupError(stage, out, e)
+        out[stage] = {"seconds": elapsed, "fresh": fresh}
     return out
 
 
@@ -103,12 +103,11 @@ def warm_gather(B: int, K: int, table) -> dict:
     dev, agg = table.device_arrays()
     if dev is None:
         raise StageWarmupError("gather", {}, RuntimeError("key table has no device rows"))
-    with graphs.device_lock(dev.device):
-        idx = torch.zeros((B, K), dtype=torch.int32, device=dev.device)
-        try:
-            _, elapsed, fresh = dbls._run_stage("gather", dbls._gather_fn, dev, agg, idx)
-        except Exception as e:
-            raise StageWarmupError("gather", {}, e)
+    idx = torch.zeros((B, K), dtype=torch.int32, device=dev.device)
+    try:
+        _, elapsed, fresh = dbls._run_stage("gather", dbls._gather_fn, dev, agg, idx)
+    except Exception as e:
+        raise StageWarmupError("gather", {}, e)
     return {"seconds": elapsed, "fresh": fresh}
 
 
@@ -117,21 +116,20 @@ def warm_msm(n: int, device="cuda") -> dict:
     through ``bls._run_stage`` under the shared stage label "msm" (their
     argument shapes differ, so each has its own graph)."""
     seconds, fresh = 0.0, False
-    with graphs.device_lock(device):
-        g1_args = (
-            torch.zeros((n, 2, fp.NL), dtype=torch.int32, device=device),     # pt_xy
-            torch.ones((n,), dtype=torch.bool, device=device),                # pt_inf
-            torch.zeros((n, 2), dtype=torch.int32, device=device),            # scalars
-        )
-        g2_args = (
-            torch.zeros((n, 2, 2, fp.NL), dtype=torch.int32, device=device),  # pt_xy
-            torch.ones((n,), dtype=torch.bool, device=device),                # pt_inf
-        )
-        for prog, args in ((dbls._msm, g1_args), (dbls._g2sum, g2_args)):
-            try:
-                _, elapsed, was_fresh = dbls._run_stage("msm", prog, *args)
-            except Exception as e:
-                raise StageWarmupError("msm", {}, e)
-            seconds += elapsed
-            fresh = fresh or was_fresh
+    g1_args = (
+        torch.zeros((n, 2, fp.NL), dtype=torch.int32, device=device),     # pt_xy
+        torch.ones((n,), dtype=torch.bool, device=device),                # pt_inf
+        torch.zeros((n, 2), dtype=torch.int32, device=device),            # scalars
+    )
+    g2_args = (
+        torch.zeros((n, 2, 2, fp.NL), dtype=torch.int32, device=device),  # pt_xy
+        torch.ones((n,), dtype=torch.bool, device=device),                # pt_inf
+    )
+    for prog, args in ((dbls._msm, g1_args), (dbls._g2sum, g2_args)):
+        try:
+            _, elapsed, was_fresh = dbls._run_stage("msm", prog, *args)
+        except Exception as e:
+            raise StageWarmupError("msm", {}, e)
+        seconds += elapsed
+        fresh = fresh or was_fresh
     return {"seconds": seconds, "fresh": fresh}

@@ -68,11 +68,6 @@ DEFAULT_RUNGS: Tuple[Rung, ...] = (
 # warmed only when a caller opts in (:func:`set_msm_warm_enabled`).
 MSM_RUNGS: Tuple[int, ...] = (64, 128, 256, 512)
 
-# The port has one field engine (the CUDA kernels on the card, their
-# plain versions on the CPU); the registry's key keeps the JAX package's
-# engine slot and fills it with this name.
-IMPL = "cuda_kernels"
-
 _msm_warm_enabled = False
 
 
@@ -345,7 +340,12 @@ class CompileService:
 
     @staticmethod
     def _impl() -> str:
-        return IMPL
+        """The active ``fp.mul`` engine: the registry's engine slot, as the
+        JAX service's. The Fp2 and line switches are covered by
+        ``crypto.device.reset_compiled_state``, as in JAX."""
+        from ..crypto.device import fp
+
+        return fp.get_impl()
 
     def route(
         self, n_sets: int, k_req: int = 1, m_req: int = 1,

@@ -4,8 +4,9 @@ integers: the port's host oracle.
 Fq2 = Fq[u]/(u^2+1); the sextic non-residue is xi = 1+u. Plain
 (non-Montgomery) arithmetic. The device stack (``crypto/device``) uses
 12-bit limb arithmetic and is tested against this module. Only what the
-port's slice uses is kept: the Frobenius constants of the Fp6/Fp12 tower
-are computed here and embedded by ``device/tower.py``.
+port uses is kept: the Frobenius constants of the Fp6/Fp12 tower are
+computed here and embedded by ``device/tower.py``, and :class:`Fq6` /
+:class:`Fq12` only hold the values ``device/tower.py`` packs and unpacks.
 """
 
 from __future__ import annotations
@@ -181,6 +182,41 @@ class Fq2:
 
 # Non-residue used for the sextic extension: xi = 1 + u.
 XI = Fq2.from_ints(1, 1)
+
+
+class Fq6:
+    """c0 + c1*v + c2*v^2 over Fq2 with v^3 = xi: a value holder for the
+    device tower's host unpacking (``device/tower.unpack_f12``)."""
+
+    __slots__ = ("c0", "c1", "c2")
+
+    def __init__(self, c0: Fq2, c1: Fq2, c2: Fq2):
+        self.c0 = c0
+        self.c1 = c1
+        self.c2 = c2
+
+    def __eq__(self, o) -> bool:
+        return (isinstance(o, Fq6) and self.c0 == o.c0 and self.c1 == o.c1
+                and self.c2 == o.c2)
+
+    def __hash__(self):
+        return hash(("Fq6", self.c0, self.c1, self.c2))
+
+
+class Fq12:
+    """c0 + c1*w over Fq6 with w^2 = v (a value holder, as :class:`Fq6`)."""
+
+    __slots__ = ("c0", "c1")
+
+    def __init__(self, c0: Fq6, c1: Fq6):
+        self.c0 = c0
+        self.c1 = c1
+
+    def __eq__(self, o) -> bool:
+        return isinstance(o, Fq12) and self.c0 == o.c0 and self.c1 == o.c1
+
+    def __hash__(self):
+        return hash(("Fq12", self.c0, self.c1))
 
 
 # Frobenius constants, computed once at import (derivable public values).

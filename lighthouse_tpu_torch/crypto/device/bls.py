@@ -47,10 +47,13 @@ The G1 MSM and G2 sum helpers (:func:`device_msm_g1`,
 Dispatch, as the JAX package's: each stage, the hashed program, the
 aggregate-verify program, the MSM and the G2 sum is one program per
 argument shape, here a CUDA graph captured at its first call
-(``graphs.CapturedProgram``, the port's ``jax.jit``) and replayed after.
-:func:`_run_stage` dispatches a stage, syncs at its boundary and says
-whether its shape was fresh (a capture). The gather and the message
-``take`` between stages 2 and 3 stay eager. With a compile service
+(``graphs.CapturedProgram``, the port's ``jax.jit``, keyed also on the
+active engines) and replayed after. :func:`_run_stage` dispatches a
+stage, syncs the caller's stream at its boundary and says whether its
+shape was fresh (a capture). No lock is held across a batch: a capture
+on another thread (the compile service's worker) holds no lock a replay
+needs. The gather and the message ``take`` between stages 2 and 3 stay
+eager. With a compile service
 attached (``compile_service``), :class:`CudaBackend` pads each batch to a
 rung whose graphs are already captured.
 """
@@ -133,6 +136,16 @@ def _decompress_post(sign_larger, y, ok):
     y_is_larger = c1_gt | (c1_eq & c0_gt)
     y_final = fp2.select(y_is_larger == sign_larger, y, neg_y)
     return y_final, ok
+
+
+def decompress_g2(sig_x, sign_larger):
+    """Device G2 decompression: y = sqrt(x^3 + 4(1+u)), the sign chosen by
+    the compressed flag's lexicographic-larger rule. ``sig_x``: fp2
+    [..., 2, NL]; ``sign_larger``: bool [...]. -> (y, ok), ``ok`` False
+    for an x not on the curve. Stage 1 runs the same two halves around its
+    shared square-root ladder."""
+    y, ok = htc.sqrt(_decompress_pre(sig_x))
+    return _decompress_post(sign_larger, y, ok)
 
 
 def _stage1_fn(sig_x, sig_larger, msg_u):
@@ -346,19 +359,22 @@ def reset_recompile_tracking() -> None:
 
 def _run_stage(stage: str, fn, *args):
     """One staged dispatch, the counterpart of the JAX package's
-    ``_run_stage``: ``fn(*args)`` under the device's lock, synced at the
-    stage boundary (as ``block_until_ready``), its wall added to
-    :data:`stage_seconds`. "Fresh" is the first sighting of the argument
-    signature, in place of the recompile counter; it is recorded only
-    after a dispatch that succeeded. Returns ``(out, elapsed_s, fresh)``."""
+    ``_run_stage``: ``fn(*args)``, then a sync of the caller's stream at
+    the stage boundary (as ``block_until_ready``; never a device-wide
+    sync, which would wait on another thread's capture), its wall added
+    to :data:`stage_seconds`. No lock is held here: a captured program
+    takes its own (``graphs.py``). "Fresh" is the first sighting of the
+    stage, device, engine triple and argument signature, in place of the
+    recompile counter; it is recorded only after a dispatch that
+    succeeded. Returns ``(out, elapsed_s, fresh)``."""
     dev = args[0].device
-    key = (stage, str(dev), tuple((tuple(a.shape), str(a.dtype)) for a in args))
-    with graphs.device_lock(dev):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        elapsed = time.perf_counter() - t0
+    key = (stage, str(dev), graphs.engines(),
+           tuple((tuple(a.shape), str(a.dtype)) for a in args))
+    t0 = time.perf_counter()
+    out = fn(*args)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    elapsed = time.perf_counter() - t0
     with _seen_lock:
         fresh = key not in _seen_stage_shapes
         _seen_stage_shapes.add(key)
@@ -392,9 +408,8 @@ def device_msm_g1(points, scalars, pad_n: int | None = None, device="cuda"):
         xy[: len(pts)], inf[: len(pts)] = curve.pack_g1(pts)
     for i, s in enumerate(sc):
         sw[i] = _u64_words(s)
-    with graphs.device_lock(device):
-        (oxy, oinf), _s, _f = _run_stage("msm", _msm, *_to_device((xy, inf, sw), device))
-        oxy, oinf = oxy.cpu(), oinf.cpu()
+    (oxy, oinf), _s, _f = _run_stage("msm", _msm, *_to_device((xy, inf, sw), device))
+    oxy, oinf = oxy.cpu(), oinf.cpu()
     return curve.unpack_g1(oxy[None].numpy(), oinf[None].numpy())[0]
 
 
@@ -407,9 +422,8 @@ def device_sum_g2(points, pad_n: int | None = None, device="cuda"):
     inf = np.ones((N,), bool)
     if pts:
         xy[: len(pts)], inf[: len(pts)] = curve.pack_g2(pts)
-    with graphs.device_lock(device):
-        (oxy, oinf), _s, _f = _run_stage("msm", _g2sum, *_to_device((xy, inf), device))
-        oxy, oinf = oxy.cpu(), oinf.cpu()
+    (oxy, oinf), _s, _f = _run_stage("msm", _g2sum, *_to_device((xy, inf), device))
+    oxy, oinf = oxy.cpu(), oinf.cpu()
     return curve.unpack_g2(oxy[None].numpy(), oinf[None].numpy())[0]
 
 
@@ -663,13 +677,9 @@ class CudaBackend:
             if any(pk.is_infinity() for pk in pks):
                 return False
         raw_mode = all(isinstance(s, Signature) for s, _, _ in sets)
-        # every device action of the batch (the table's inserts, the pack's
-        # copies, the stages, the verdict read) under the device's lock, so
-        # none lands inside a graph capture on another thread
-        with graphs.device_lock(self.device):
-            return self._verify_locked(sets, raw_mode)
-
-    def _verify_locked(self, sets, raw_mode: bool) -> bool:
+        # no lock around the batch: captures run in CUDA's thread-local
+        # mode, so this thread's inserts, copies, replays and syncs may run
+        # beside another thread's capture (graphs.py)
         t0 = time.perf_counter()
         resolved = None
         n_collapsed = 0
@@ -785,9 +795,8 @@ class CudaBackend:
         msg_idx = np.zeros((Bn,), np.int32)
         msg_idx[:n] = idx
         msg_u = htc.messages_to_u(msgs, DST)
-        with graphs.device_lock(self.device):
-            return bool(_aggregate_verify_device(
-                *_to_device((pk_xy, pk_inf, msg_u, msg_idx, sxy[0]), self.device)))
+        return bool(_aggregate_verify_device(
+            *_to_device((pk_xy, pk_inf, msg_u, msg_idx, sxy[0]), self.device)))
 
     def _verify_one(self, sig, pks, message) -> bool:
         if sig.is_infinity():

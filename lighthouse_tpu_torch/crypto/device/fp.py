@@ -18,13 +18,30 @@ the same arrays:
   >= LIMB_MAX), so ``x - y + SAT`` is limb-wise non-negative.
 
 :func:`mul` is the funnel every Fp2/Fp6/Fp12/curve/pairing product drains
-into; it goes to kernel K1 (``kernels.fp_mul``). Everything else here is
-plain torch on whatever device its inputs lie on.
+into. It runs the active engine, the JAX package's switch and names:
+
+* ``pallas_int8`` (the default): kernel K1 (``kernels.fp_mul``), the port
+  of the Pallas kernel;
+* ``toeplitz_int32``: the banded-Toeplitz schoolbook product as two
+  16-limb half dots with one carry round each;
+* ``matmul_int8``: both operands split into int8 halves, four half
+  products recombined with shifts (the TPU's MXU shape).
+
+The two composed engines are plain torch: CUDA torch has no integer
+matmul, so their dots are broadcast multiply-sums in int32, as K1's plain
+version is. Select with ``LIGHTHOUSE_TPU_FP_IMPL`` (read at import),
+:func:`set_impl` or the :func:`impl` context. A captured CUDA graph holds
+the engine it was captured under, and its key names that engine
+(``graphs.engines``); ``crypto.device.reset_compiled_state()`` drops the
+graphs and the warm-shape registry after a switch. Everything else here
+is plain torch on whatever device its inputs lie on.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
 import threading
 
 import numpy as np
@@ -44,12 +61,12 @@ MASK = (1 << W) - 1       # 0xFFF
 LIMB_MAX = 8191           # relaxed per-limb bound maintained by reduce_cols
 NCOLS = 2 * NL - 1        # full-product column count
 
-# The int8 limb split of the TPU kernel: the smallest shift whose high half
-# fits a signed int8 (hi = limb >> 6 <= 127, lo = limb & 63). The Hopper
-# kernels do not split limbs; the constant is kept for parity with the
-# reference's layout.
+# The int8 limb split of the TPU's MXU engines: the smallest shift whose
+# high half fits a signed int8 (hi = limb >> 6 <= 127, lo = limb & 63).
+# The Hopper kernels do not split limbs; the ``matmul_int8`` engine does.
 _INT8_MAX = 127
 SPLIT_SHIFT = next(s for s in range(1, 13) if (LIMB_MAX >> s) <= _INT8_MAX)
+SPLIT_MASK = (1 << SPLIT_SHIFT) - 1
 
 
 # ---------------------------------------------------------------------------
@@ -333,9 +350,122 @@ class LinMap:
         return reduce_cols(out, self.bounds)
 
 
-def mul(x, y):
-    """Product mod p: kernel K1 on the card, its plain version on the CPU."""
+# ---------------------------------------------------------------------------
+# Multiplication engines and their switch
+# ---------------------------------------------------------------------------
+
+_H = NL // 2
+# Exact column bounds of the two 16-limb halves of the schoolbook band.
+_HALF_BOUNDS = (
+    tuple(_overlap(c, 0, _H) * LIMB_MAX ** 2 for c in range(NCOLS)),
+    tuple(_overlap(c, _H, NL) * LIMB_MAX ** 2 for c in range(NCOLS)),
+)
+# The shifted high-high partial is the largest recombination intermediate.
+assert (NL * (LIMB_MAX >> SPLIT_SHIFT) ** 2 << (2 * SPLIT_SHIFT)) < 2 ** 31, \
+    "hh<<2S recombination must fit int32"
+
+
+def band_matrix(y):
+    """Gather ``y`` into the ``[..., NL, NCOLS]`` banded-Toeplitz matrix
+    (``band[a, c] = y[c - a]`` inside the band) every engine contracts."""
+    return y[..., table("BAND_IDX", y.device)] * table("BAND_MASK", y.device)
+
+
+def _dot(x, band):
+    """``cols[..., c] = sum_a x[..., a] band[..., a, c]``, int32 products
+    and sums (no integer matmul on CUDA)."""
+    return (x.unsqueeze(-1) * band).sum(-2, dtype=torch.int32)
+
+
+def _mul_toeplitz_int32(x, y):
+    """Banded-Toeplitz schoolbook product, split into two 16-limb dots;
+    each half gets one carry round before the halves are added and
+    reduced (the JAX package's per-half schedule and bounds)."""
+    x, y = torch.broadcast_tensors(x, y)
+    band = band_matrix(y)
+    cols, bounds = [], []
+    for sl, hb in zip((slice(0, _H), slice(_H, NL)), _HALF_BOUNDS):
+        cols.append(_carry_round(_dot(x[..., sl], band[..., sl, :])))
+        bounds.append(_carry_bounds(hb))
+    return reduce_cols(cols[0] + cols[1], tuple(a + b for a, b in zip(*bounds)))
+
+
+def split_int8(a):
+    """Stack the int8-ranged halves of limb array ``a`` on a NEW leading
+    axis: ``out[0] = a >> SPLIT_SHIFT`` (<= 127), ``out[1] = a &
+    SPLIT_MASK`` (<= 63). Valid for any value in [0, LIMB_MAX]."""
+    return torch.stack([a >> SPLIT_SHIFT, a & SPLIT_MASK], dim=0).to(torch.int8)
+
+
+def recombine_int8_passes(passes):
+    """``passes[i, j] = (x half i) . (band half j)`` int32 columns ->
+    the exact product columns via shifts (peak ``max(MUL_COL_BOUNDS)``)."""
+    hh, hl = passes[0, 0], passes[0, 1]
+    lh, ll = passes[1, 0], passes[1, 1]
+    return (hh << (2 * SPLIT_SHIFT)) + ((hl + lh) << SPLIT_SHIFT) + ll
+
+
+def _mul_matmul_int8(x, y):
+    """The int8 decomposition: both operands split into int8 halves, the
+    four half products ``x_i . band_j`` recombined with shifts into the
+    exact columns, reduced with the full-band bounds. torch multiplies
+    int8 by int8 in int8 (it wraps), so the halves are widened to int32
+    before every product and sum."""
+    x, y = torch.broadcast_tensors(x, y)
+    xs = split_int8(x).to(torch.int32)                # [2, ..., NL]
+    bs = split_int8(band_matrix(y)).to(torch.int32)   # [2, ..., NL, NCOLS]
+    passes = _dot(xs.unsqueeze(1), bs.unsqueeze(0))   # [2, 2, ..., NCOLS]
+    return reduce_cols(recombine_int8_passes(passes), MUL_COL_BOUNDS)
+
+
+def _mul_pallas_int8(x, y):
+    """Kernel K1 on the card, its plain version on the CPU."""
     return _kernels.fp_mul(x, y)
+
+
+IMPL_TOEPLITZ_INT32 = "toeplitz_int32"
+IMPL_MATMUL_INT8 = "matmul_int8"
+IMPL_PALLAS_INT8 = "pallas_int8"
+
+_MUL_IMPLS = {
+    IMPL_TOEPLITZ_INT32: _mul_toeplitz_int32,
+    IMPL_MATMUL_INT8: _mul_matmul_int8,
+    IMPL_PALLAS_INT8: _mul_pallas_int8,
+}
+
+_active_impl = os.environ.get("LIGHTHOUSE_TPU_FP_IMPL", IMPL_PALLAS_INT8)
+if _active_impl not in _MUL_IMPLS:
+    raise KeyError(f"LIGHTHOUSE_TPU_FP_IMPL={_active_impl!r} unknown; "
+                   f"have {sorted(_MUL_IMPLS)}")
+
+
+def get_impl() -> str:
+    return _active_impl
+
+
+def set_impl(name: str) -> None:
+    """Select the ``fp.mul`` engine for later calls. Captured graphs keep
+    the engine they hold, under a key that names it."""
+    global _active_impl
+    if name not in _MUL_IMPLS:
+        raise KeyError(f"unknown fp impl {name!r}; have {sorted(_MUL_IMPLS)}")
+    _active_impl = name
+
+
+@contextlib.contextmanager
+def impl(name: str):
+    """Scoped engine switch (restores the previous choice)."""
+    prev = _active_impl
+    set_impl(name)
+    try:
+        yield
+    finally:
+        set_impl(prev)
+
+
+def mul(x, y):
+    """Product mod p under the active engine."""
+    return _MUL_IMPLS[_active_impl](x, y)
 
 
 def sq(x):

@@ -4,13 +4,25 @@ An Fp2 element is ``int32[..., 2, 32]``: axis -2 stacks (c0, c1), axis -1
 is the 12-bit limb axis of :mod:`.fp`. All ops broadcast over leading batch
 dims and mirror the host oracle ``crypto/cpu/fields.Fq2``.
 
-:func:`mul` and :func:`sq` are the Fp2 funnels: kernels K2 and K3
-(``kernels.fp2_mul`` / ``kernels.fp2_sq``), which run the operand sums,
-the products, their reduction and the Karatsuba combine in one launch.
-:func:`mul_pairs` and :func:`sq_batch` stack many products into one call.
+:func:`mul` and :func:`sq` are the Fp2 funnels. They run the active
+engine, the JAX package's switch and names:
+
+* ``fused_pallas`` (the default): kernels K2 and K3 (``kernels.fp2_mul`` /
+  ``kernels.fp2_sq``), which run the operand sums, the products, their
+  reduction and the Karatsuba combine in one launch;
+* ``composed``: the Karatsuba recombination as separate ops around one
+  batched :func:`fp.mul`, so it inherits the active ``fp.mul`` engine.
+
+Select with ``LIGHTHOUSE_TPU_FP2_IMPL`` (read at import), :func:`set_impl`
+or the :func:`impl` context; captured graphs are keyed on the engine
+(``graphs.engines``). :func:`mul_pairs` and :func:`sq_batch` stack many
+products into one call.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
 
 import numpy as np
 import torch
@@ -72,14 +84,74 @@ def _bstack(elems, dim):
     return torch.stack(elems, dim=dim)
 
 
+def _mul_composed(x, y):
+    """(a0 + a1 u)(b0 + b1 u) by Karatsuba, the three Fp products stacked
+    into ONE batched ``fp.mul``."""
+    a0, a1 = c0(x), c1(x)
+    b0, b1 = c0(y), c1(y)
+    xs = _bstack([a0, a1, fp.add(a0, a1)], -2)
+    ys = _bstack([b0, b1, fp.add(b0, b1)], -2)
+    t = fp.mul(xs, ys)
+    t0, t1, m = t[..., 0, :], t[..., 1, :], t[..., 2, :]
+    return pack(fp.sub(t0, t1), fp.sub(m, fp.add(t0, t1)))
+
+
+def _sq_composed(x):
+    """(a0 + a1 u)^2 = (a0+a1)(a0-a1) + 2 a0 a1 u (one batched fp.mul)."""
+    a0, a1 = c0(x), c1(x)
+    xs = _bstack([fp.add(a0, a1), a0], -2)
+    ys = _bstack([fp.sub(a0, a1), a1], -2)
+    t = fp.mul(xs, ys)
+    t2 = t[..., 1, :]
+    return pack(t[..., 0, :], fp.add(t2, t2))
+
+
+IMPL_COMPOSED = "composed"
+IMPL_FUSED_PALLAS = "fused_pallas"
+
+_IMPLS = {
+    IMPL_COMPOSED: (_mul_composed, _sq_composed),
+    IMPL_FUSED_PALLAS: (kernels.fp2_mul, kernels.fp2_sq),
+}
+
+_active_impl = os.environ.get("LIGHTHOUSE_TPU_FP2_IMPL", IMPL_FUSED_PALLAS)
+if _active_impl not in _IMPLS:
+    raise KeyError(f"LIGHTHOUSE_TPU_FP2_IMPL={_active_impl!r} unknown; "
+                   f"have {sorted(_IMPLS)}")
+
+
+def get_impl() -> str:
+    return _active_impl
+
+
+def set_impl(name: str) -> None:
+    """Select the Fp2 engine for later calls (same contract as
+    ``fp.set_impl``)."""
+    global _active_impl
+    if name not in _IMPLS:
+        raise KeyError(f"unknown fp2 impl {name!r}; have {sorted(_IMPLS)}")
+    _active_impl = name
+
+
+@contextlib.contextmanager
+def impl(name: str):
+    """Scoped engine switch (restores the previous choice)."""
+    prev = _active_impl
+    set_impl(name)
+    try:
+        yield
+    finally:
+        set_impl(prev)
+
+
 def mul(x, y):
-    """Fp2 product: kernel K2 on the card, its plain version on the CPU."""
-    return kernels.fp2_mul(x, y)
+    """Fp2 product under the active engine (K2 by default)."""
+    return _IMPLS[_active_impl][0](x, y)
 
 
 def sq(x):
-    """Fp2 square: kernel K3 on the card, its plain version on the CPU."""
-    return kernels.fp2_sq(x)
+    """Fp2 square under the active engine (K3 by default)."""
+    return _IMPLS[_active_impl][1](x)
 
 
 def mul_pairs(pairs):

@@ -4,49 +4,73 @@ The JAX package dispatches each stage of its verifier as one compiled XLA
 executable per argument shape. The port's stages are plain torch code
 around three hand-written kernels; run eagerly, a verify is tens of
 thousands of small launches and their host dispatch is most of its wall.
-:class:`CapturedProgram` records a function once per argument signature
-into a ``torch.cuda.CUDAGraph`` and replays it afterwards: one graph
-launch in place of the launches it holds.
+:class:`CapturedProgram` records a function once per key into a
+``torch.cuda.CUDAGraph`` and replays it afterwards: one graph launch in
+place of the launches it holds.
 
-A call with
+A graph's key is the device, the active engine triple (:func:`engines`:
+the ``fp.mul``, Fp2 and line-step engines, which decide what a capture
+records) and each argument's shape and dtype, as jit's cache is keyed. A
+call with
 
 * CPU tensors runs ``fn`` eagerly: no graph exists on the CPU (the tests'
   path);
-* CUDA tensors, for the first time at its key (the device and each
-  argument's shape and dtype, as jit's cache is keyed), under the device's
-  lock:
+* CUDA tensors, for the first time at its key, under the device's
+  capture lock (the key is looked up again under it, so two first calls
+  of one key capture once):
 
-  1. runs ``fn`` once eagerly on a side stream: the warm-up builds the
-     kernels (``kernels.build``), loads their modules (no lazy loading may
-     happen under capture) and fills the constant caches (``fp.on_device``,
-     ``fp.LinMap``). Its launches are real and counted; its wall is the
-     function's eager wall;
+  1. runs ``fn`` once eagerly on the capture stream: the warm-up builds
+     the kernels (``kernels.build``), loads their modules (no lazy loading
+     may happen under capture) and fills the constant caches
+     (``fp.on_device``, ``fp.LinMap``). Its launches are real: they are
+     counted into a sink of this thread (``kernels.counting_into``) and
+     then added to the global counters once. Its wall is the function's
+     eager wall;
   2. captures ``fn`` over static copies of the arguments and instantiates
-     the graph. The kernel counters the capture bumped (no kernel ran) are
-     rolled back and kept as the graph's credit; they must equal the
+     the graph. The kernel counts of the capture (no kernel ran) go to a
+     second sink and are kept as the graph's credit; they must equal the
      warm-up's;
   3. replays once and holds every output equal to the warm-up's
      (``torch.equal``), uncredited;
 
-* CUDA tensors at a captured key: copies each argument into its static
-  input, replays, and credits the kernel counters (``kernels.credit``), so
-  ``kernels.launches``/``lanes``/``lane_hist`` count per call as an eager
-  run would.
+* CUDA tensors at a captured key: under that graph's own lock, copies
+  each argument into its static input, replays, credits the kernel
+  counters (``kernels.credit``), so ``kernels.launches``/``lanes``/
+  ``lane_hist`` count per call as an eager run would, and clones the
+  outputs.
 
 Outputs are clones owned by the caller: the graph's own output buffers
 are overwritten by the next replay of the key. There is no fallback: a
 capture, instantiation, check or replay that fails raises, and ``fn``
 runs on a CUDA tensor only as the warm-up before its capture.
 
-Capture uses PyTorch's default "global" mode, which refuses an allocation,
-copy or sync that any other thread makes while a capture runs. So capture
-and replay take one re-entrant lock per device (:func:`device_lock`), and
-the port's callers hold it around all their device work (the backend's
-pack and dispatch, the warm-up's dummy arguments). :func:`status` reports
-the seconds callers waited on it, and per graph its capture seconds,
-eager warm-up seconds, node count (the launches captured, through the
-driver's ``cuGraphGetNodes``) and pool bytes (reserved memory around the
-capture, ``torch.cuda.memory_stats``).
+Threads. Capture uses CUDA's "thread_local" mode: only the capturing
+thread is barred from allocating, copying or syncing while it captures.
+Other threads go on allocating, copying, replaying other graphs and
+syncing their own streams beside it, so a cold key's capture never
+stalls a warm key's replay. Two locks remain, neither held across a
+batch:
+
+* the capture lock, one per device, held only around one key's warm-up,
+  capture, instantiation and check: it serializes captures with one
+  another;
+* the graph lock, one per captured key, held over the copy-in, replay
+  and clone-out of that graph, so two threads replaying one key never
+  interleave on its static buffers.
+
+The order is capture lock, then graph lock (only :func:`reset` takes
+both); ``fp``'s fill lock is a leaf taken under neither by traffic. One
+wait remains outside these locks: CUDA itself holds back every other
+thread's CUDA calls (launches, copies, syncs, on any stream) through the
+last part of a graph's instantiation, so a warm call beside a capture
+can wait that long (the instantiation is a capture's last step). The
+capture stream is a pool stream, which CUDA creates non-blocking, so no
+other thread's work joins it through the legacy default stream, and the
+caching allocator sends only that stream's allocations to the graph's
+private pool. :func:`status` reports the seconds callers waited on each
+kind of lock, and per graph its capture seconds, eager warm-up seconds,
+node count (the launches captured, through ``cuGraphGetNodes``), pool bytes (the segments of its private pool in
+the allocator's snapshot) and lock waits.
 """
 
 from __future__ import annotations
@@ -59,7 +83,7 @@ import weakref
 
 import torch
 
-from . import kernels
+from . import fp, fp2, kernels, pairing
 
 
 class GraphCaptureError(RuntimeError):
@@ -67,8 +91,8 @@ class GraphCaptureError(RuntimeError):
     warm-up."""
 
 
-_LOCKS: dict = {}            # device index -> RLock
-_lock_wait_s: dict = {}      # device index -> seconds callers waited
+_CAPTURE_LOCKS: dict = {}    # device index -> RLock (serializes captures)
+_lock_wait_s: dict = {}      # ("capture" | "graph", device index) -> seconds waited
 _GUARD = threading.Lock()
 _PROGRAMS: "weakref.WeakSet[CapturedProgram]" = weakref.WeakSet()
 _side_streams: dict = {}     # device index -> the capture stream
@@ -79,6 +103,14 @@ _event_timing = False
 _events: list = []
 
 
+def engines() -> tuple:
+    """The active engine triple (fp, fp2, line): ``fp.get_impl()``,
+    ``fp2.get_impl()`` and ``pairing.get_line_impl()``. Part of every
+    graph's key, so a graph captured under one engine is never replayed
+    under another."""
+    return (fp.get_impl(), fp2.get_impl(), pairing.get_line_impl())
+
+
 def _cuda_index(device) -> int | None:
     dev = torch.device(device)
     if dev.type != "cuda":
@@ -87,24 +119,25 @@ def _cuda_index(device) -> int | None:
 
 
 @contextlib.contextmanager
-def device_lock(device):
-    """Hold ``device``'s capture-and-replay lock (re-entrant; a no-op off
-    CUDA). The seconds spent waiting for it add to :func:`status`."""
-    idx = _cuda_index(device)
-    if idx is None:
-        yield
-        return
-    with _GUARD:
-        lock = _LOCKS.setdefault(idx, threading.RLock())
+def _waited(lock, kind: str, idx: int, g=None):
+    """Hold ``lock``; the seconds spent waiting for it add to
+    :func:`status` under ``kind`` (and to graph ``g``'s record)."""
     t0 = time.perf_counter()
     lock.acquire()
     waited = time.perf_counter() - t0
     with _GUARD:
-        _lock_wait_s[idx] = _lock_wait_s.get(idx, 0.0) + waited
+        _lock_wait_s[(kind, idx)] = _lock_wait_s.get((kind, idx), 0.0) + waited
+        if g is not None:
+            g.lock_wait_s += waited
     try:
         yield
     finally:
         lock.release()
+
+
+def _capture_lock(idx: int):
+    with _GUARD:
+        return _CAPTURE_LOCKS.setdefault(idx, threading.RLock())
 
 
 def set_event_timing(on: bool) -> None:
@@ -137,8 +170,12 @@ def _node_count(graph) -> int:
     return n.value
 
 
-def _reserved(idx: int) -> int:
-    return torch.cuda.memory_stats(idx).get("reserved_bytes.all.current", 0)
+def _pool_bytes(pool) -> int:
+    """Bytes of the allocator's segments in the private pool ``pool``
+    (exact whatever other threads allocate meanwhile)."""
+    pool = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == pool)
 
 
 def _tensors(out) -> tuple:
@@ -151,18 +188,25 @@ def _tensors(out) -> tuple:
 
 class _Graph:
     """One captured key: the graph, its static inputs and outputs, the
-    kernel counts each replay credits, and what its capture cost."""
+    kernel counts each replay credits, its lock, and what its capture
+    cost."""
 
-    __slots__ = ("graph", "inputs", "outputs", "single", "credit", "done",
+    __slots__ = ("graph", "inputs", "outputs", "single", "credit", "done", "lock",
                  "warmup_s", "capture_s", "instantiate_s", "nodes", "pool_bytes",
-                 "replays")
+                 "replays", "lock_wait_s", "steps")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.replays = 0
+        self.lock_wait_s = 0.0
+        self.done = None
 
     def record(self) -> dict:
         return {
             "warmup_s": self.warmup_s, "capture_s": self.capture_s,
             "instantiate_s": self.instantiate_s,
             "nodes": self.nodes, "pool_bytes": self.pool_bytes,
-            "replays": self.replays,
+            "replays": self.replays, "lock_wait_s": self.lock_wait_s,
             "launches": {k: v[0] for k, v in self.credit.items()},
         }
 
@@ -180,8 +224,9 @@ class CapturedProgram:
 
     @staticmethod
     def key(args) -> tuple:
-        """(device, ((shape, dtype), ...)): the graph's key for ``args``."""
-        return (str(args[0].device),
+        """(device, engine triple, ((shape, dtype), ...)): the graph's key
+        for ``args`` under the active engines."""
+        return (str(args[0].device), engines(),
                 tuple((tuple(a.shape), str(a.dtype)) for a in args))
 
     def graph_for(self, *args) -> _Graph | None:
@@ -197,41 +242,41 @@ class CapturedProgram:
         if len(devices) != 1:
             raise ValueError(f"{self.name}: arguments lie on {sorted(map(str, devices))}")
         dev = args[0].device
-        key = self.key(args)
-        with device_lock(dev):
-            g = self._graphs.get(key)
-            if g is None:
-                g = self._capture(args, dev)
-                self._graphs[key] = g
-                return self._outputs(g, dev)
-            return self._replay(g, args, dev)
-
-    def _capture(self, args, dev) -> _Graph:
         idx = _cuda_index(dev)
+        key = self.key(args)
+        g = self._graphs.get(key)
+        if g is None:
+            with _waited(_capture_lock(idx), "capture", idx):
+                g = self._graphs.get(key)  # another thread may have captured it
+                if g is None:
+                    g = self._capture(args, dev, idx)
+                    with g.lock:  # published only with its first outputs cloned
+                        self._graphs[key] = g
+                        return self._outputs(g, dev)
+        return self._replay(g, args, dev, idx)
+
+    def _capture(self, args, dev, idx: int) -> _Graph:
         side = _side_streams.get(idx)
-        if side is None:
+        if side is None:  # a pool stream: non-blocking
             side = _side_streams.setdefault(idx, torch.cuda.Stream(dev))
+        caller = torch.cuda.current_stream(dev)
         g = _Graph()
-        g.replays = 0
-        # 1. eager warm-up on the side stream
-        torch.cuda.synchronize(dev)
-        before = kernels.snapshot()
-        t0 = time.perf_counter()
+        side.wait_stream(caller)  # the arguments are ready
         with torch.cuda.stream(side):
-            ref = _tensors(self.fn(*args))
-        torch.cuda.synchronize(dev)
-        g.warmup_s = time.perf_counter() - t0
-        eager = kernels.since(before)
-        # 2. capture over static copies of the arguments
-        g.inputs = [a.clone() for a in args]
-        torch.cuda.synchronize(dev)
-        reserved0 = _reserved(idx)
-        g.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        snap = kernels.snapshot()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.stream(side):
-                g.graph.capture_begin(capture_error_mode="global")
+            # 1. eager warm-up: real launches, counted apart, then credited
+            t = [time.perf_counter()]
+            with kernels.counting_into() as eager:
+                ref = _tensors(self.fn(*args))
+            side.synchronize()
+            t.append(time.perf_counter())
+            g.warmup_s = t[1] - t[0]
+            kernels.credit(eager)
+            # 2. capture over static copies of the arguments
+            g.inputs = [a.clone() for a in args]
+            g.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            t.append(time.perf_counter())
+            with kernels.counting_into() as g.credit:
+                g.graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     out = self.fn(*g.inputs)
                 except BaseException:
@@ -239,47 +284,51 @@ class CapturedProgram:
                         g.graph.capture_end()
                     raise
                 g.graph.capture_end()
-        finally:
-            g.credit = kernels.since(snap)
-            kernels.restore(snap)
-        t1 = time.perf_counter()
-        g.graph.instantiate()
-        torch.cuda.synchronize(dev)
-        g.instantiate_s = time.perf_counter() - t1
-        g.capture_s = time.perf_counter() - t0  # the instantiation included
-        g.pool_bytes = _reserved(idx) - reserved0
-        g.nodes = _node_count(g.graph)
-        g.single = not isinstance(out, tuple)
-        g.outputs = _tensors(out)
-        if g.credit != eager:
-            raise GraphCaptureError(
-                f"{self.name}: the capture counted launches {g.credit}, the warm-up {eager}")
-        # 3. one uncredited replay, held equal to the warm-up
-        g.graph.replay()
-        torch.cuda.synchronize(dev)
-        for i, (o, r) in enumerate(zip(g.outputs, ref)):
-            if not torch.equal(o, r):
-                raise GraphCaptureError(f"{self.name}: output {i} of the first replay "
-                                        "differs from the eager warm-up")
+            t.append(time.perf_counter())
+            g.graph.instantiate()
+            t.append(time.perf_counter())
+            g.instantiate_s = t[4] - t[3]
+            g.capture_s = t[4] - t[2]  # the instantiation included
+            g.pool_bytes = _pool_bytes(g.graph.pool())
+            g.nodes = _node_count(g.graph)
+            t.append(time.perf_counter())
+            g.single = not isinstance(out, tuple)
+            g.outputs = _tensors(out)
+            if g.credit != eager:
+                raise GraphCaptureError(
+                    f"{self.name}: the capture counted launches {g.credit}, the warm-up {eager}")
+            # 3. one uncredited replay, held equal to the warm-up
+            g.graph.replay()
+            side.synchronize()
+            for i, (o, r) in enumerate(zip(g.outputs, ref)):
+                if not torch.equal(o, r):
+                    raise GraphCaptureError(f"{self.name}: output {i} of the first replay "
+                                            "differs from the eager warm-up")
+        caller.wait_stream(side)
+        t.append(time.perf_counter())
+        # host-clock spans of the steps, to place a capture beside other work
+        g.steps = dict(zip(("warmup", "copy", "capture", "instantiate", "inspect", "check"),
+                           zip(t, t[1:])))
         return g
 
-    def _replay(self, g: _Graph, args, dev):
+    def _replay(self, g: _Graph, args, dev, idx: int):
         stream = torch.cuda.current_stream(dev)
-        stream.wait_event(g.done)  # the previous call's reads and clones
-        for s, a in zip(g.inputs, args):
-            s.copy_(a)
-        if _event_timing:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            g.graph.replay()
-            end.record(stream)
-            _events.append((start, end))
-        else:
-            g.graph.replay()
-        kernels.credit(g.credit)
-        g.replays += 1
-        return self._outputs(g, dev)
+        with _waited(g.lock, "graph", idx, g):
+            stream.wait_event(g.done)  # the previous call's reads and clones
+            for s, a in zip(g.inputs, args):
+                s.copy_(a)
+            if _event_timing:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                g.graph.replay()
+                end.record(stream)
+                _events.append((start, end))
+            else:
+                g.graph.replay()
+            kernels.credit(g.credit)
+            g.replays += 1
+            return self._outputs(g, dev)
 
     @staticmethod
     def _outputs(g: _Graph, dev):
@@ -289,31 +338,52 @@ class CapturedProgram:
         return outs[0] if g.single else outs
 
     def reset(self) -> None:
-        """Drop every captured graph of this program."""
-        self._graphs.clear()
+        """Drop every captured graph of this program, once no capture runs
+        and each graph's last replay has finished on the card."""
+        with _all_capture_locks():
+            for g in list(self._graphs.values()):
+                with g.lock:
+                    if g.done is not None:
+                        g.done.synchronize()
+            self._graphs.clear()
+
+
+@contextlib.contextmanager
+def _all_capture_locks():
+    with _GUARD:
+        locks = [_CAPTURE_LOCKS[i] for i in sorted(_CAPTURE_LOCKS)]
+    with contextlib.ExitStack() as stack:
+        for lock in locks:
+            stack.enter_context(lock)
+        yield
 
 
 def status() -> dict:
     """Captured graphs by program and key, the totals of nodes and pool
-    bytes, and the seconds callers waited on each device's lock."""
+    bytes, and the seconds callers waited on each device's capture lock
+    and on its graphs' locks."""
     progs = {}
     nodes = pool = 0
     for p in sorted(_PROGRAMS, key=lambda p: p.name):
-        recs = {f"{dev} " + " ".join(
+        recs = {f"{dev} {'/'.join(eng)} " + " ".join(
                     "x".join(map(str, shape)) + f":{dtype.split('.')[-1]}"
                     for shape, dtype in sig): g.record()
-                for (dev, sig), g in list(p._graphs.items())}
+                for (dev, eng, sig), g in list(p._graphs.items())}
         if recs:
             progs[p.name] = recs
             nodes += sum(r["nodes"] for r in recs.values())
             pool += sum(r["pool_bytes"] for r in recs.values())
     with _GUARD:
-        waits = {f"cuda:{i}": s for i, s in sorted(_lock_wait_s.items())}
+        waits = {kind: {f"cuda:{i}": s for (k, i), s in sorted(_lock_wait_s.items())
+                        if k == kind}
+                 for kind in ("capture", "graph")}
     return {"programs": progs, "graphs": sum(len(r) for r in progs.values()),
             "nodes": nodes, "pool_bytes": pool, "lock_wait_s": waits}
 
 
 def reset() -> None:
-    """Drop every program's graphs (their pools return to the allocator)."""
-    for p in list(_PROGRAMS):
-        p.reset()
+    """Drop every program's graphs (their pools return to the allocator),
+    under every capture lock and each graph's lock."""
+    with _all_capture_locks():
+        for p in list(_PROGRAMS):
+            p.reset()

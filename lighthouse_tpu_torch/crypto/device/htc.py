@@ -125,6 +125,13 @@ def sswu_post(u, x1, x2, roots, ok):
     return x, y
 
 
+def map_to_curve_sswu(u):
+    """u: fp2 [..., 2, NL] -> affine (x, y) on the iso-curve E2'."""
+    x1, x2, g = sswu_pre(u)
+    roots, ok = sqrt(g)
+    return sswu_post(u, x1, x2, roots, ok)
+
+
 # ---------------------------------------------------------------------------
 # 3-isogeny E2' -> E2
 # ---------------------------------------------------------------------------

@@ -20,9 +20,14 @@ CPU. For CUDA tensors it launches the kernel or raises: there is no
 fallback. ``launches`` counts kernel launches, one per launch and nowhere
 else; ``lanes`` sums the lanes (Fp or Fp2 elements) of those launches and
 ``lane_hist`` counts launches by lane count, updated at the same place.
-The one exception is a CUDA graph (``graphs.py``): its capture's counts
-are rolled back, since nothing ran, and added again by :func:`credit` on
-every replay, which launches the captured kernels.
+The one exception is a CUDA graph (``graphs.py``): while a thread runs a
+capture or its eager warm-up, that thread counts into the capture's own
+sink (:func:`counting_into`, thread-local), never into these dicts. The
+warm-up's counts are then added once (its launches ran), and the
+capture's are added again by :func:`credit` on every replay, which
+launches the captured kernels. Counts from other threads (their own
+launches, their replays' credits) go on landing in the dicts exactly,
+under one lock, while a capture runs.
 K1 reduces inside the kernel (the ``reduce`` flag), so ``fp.mul`` on the
 card is one launch; the raw-column mode exists to hold the kernel against
 ``mul_cols_int8`` column for column.
@@ -35,6 +40,7 @@ c1 on warp 1 with no block barrier between them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -68,50 +74,65 @@ _MAX_LIMBS = 96  # a warp holds limbs t, t+32, t+64 of a lane
 launches = {"fp_mul_cols": 0, "fp2_mul": 0, "fp2_sq": 0}
 lanes = dict.fromkeys(launches, 0)
 lane_hist = {k: Counter() for k in launches}
+_COUNT_LOCK = threading.Lock()   # the global counters, from any thread
+_tls = threading.local()         # .sink: this thread's capture sink, or None
 
 
 def reset_launches() -> None:
     """Set ``launches``, ``lanes`` and ``lane_hist`` to zero."""
-    for k in launches:
-        launches[k] = 0
-        lanes[k] = 0
-        lane_hist[k].clear()
+    with _COUNT_LOCK:
+        for k in launches:
+            launches[k] = 0
+            lanes[k] = 0
+            lane_hist[k].clear()
 
 
 def _count(name: str, n: int) -> None:
-    """Record one launch of kernel ``name`` over ``n`` lanes."""
-    launches[name] += 1
-    lanes[name] += n
-    lane_hist[name][n] += 1
+    """Record one launch of kernel ``name`` over ``n`` lanes: into this
+    thread's capture sink when it has one, else into the global counters."""
+    sink = getattr(_tls, "sink", None)
+    if sink is not None:
+        c, s, hist = sink[name]
+        sink[name] = (c + 1, s + n, hist)
+        hist[n] += 1
+        return
+    with _COUNT_LOCK:
+        launches[name] += 1
+        lanes[name] += n
+        lane_hist[name][n] += 1
+
+
+@contextlib.contextmanager
+def counting_into():
+    """Count this thread's launches into a fresh sink instead of the
+    global counters while the block runs (a capture and its warm-up,
+    ``graphs.py``). Yields the sink, ``{kernel: (launches, lanes, lane
+    histogram)}``, :func:`snapshot`'s form. Other threads are unaffected."""
+    prev = getattr(_tls, "sink", None)
+    sink = {k: (0, 0, Counter()) for k in launches}
+    _tls.sink = sink
+    try:
+        yield sink
+    finally:
+        _tls.sink = prev
 
 
 def snapshot() -> dict:
     """A copy of the counters: {kernel: (launches, lanes, lane histogram)}."""
-    return {k: (launches[k], lanes[k], Counter(lane_hist[k])) for k in launches}
-
-
-def since(snap: dict) -> dict:
-    """The counts added since ``snap``, in :func:`snapshot`'s form."""
-    return {k: (launches[k] - n, lanes[k] - l, lane_hist[k] - h)
-            for k, (n, l, h) in snap.items()}
-
-
-def restore(snap: dict) -> None:
-    """Set the counters back to ``snap``."""
-    for k, (n, l, h) in snap.items():
-        launches[k], lanes[k] = n, l
-        lane_hist[k].clear()
-        lane_hist[k].update(h)
+    with _COUNT_LOCK:
+        return {k: (launches[k], lanes[k], Counter(lane_hist[k])) for k in launches}
 
 
 def credit(delta: dict) -> None:
-    """Add ``delta`` (from :func:`since`) to the counters: the launches of
-    one replay of a CUDA graph, which the wrappers counted while the graph
-    was captured (``graphs.py``) and which launch again on every replay."""
-    for k, (n, l, h) in delta.items():
-        launches[k] += n
-        lanes[k] += l
-        lane_hist[k].update(h)
+    """Add ``delta`` (in :func:`snapshot`'s form) to the global counters:
+    the launches of one replay of a CUDA graph, counted into the capture's
+    sink when the graph was captured (``graphs.py``), or the real launches
+    of a capture's warm-up."""
+    with _COUNT_LOCK:
+        for k, (n, l, h) in delta.items():
+            launches[k] += n
+            lanes[k] += l
+            lane_hist[k].update(h)
 
 
 # ---------------------------------------------------------------------------
@@ -123,8 +144,7 @@ def fp_mul_cols_plain(x, y):
     limb arrays [..., 32] -> int32 [..., 63], by broadcast-multiply-sum over
     the banded-Toeplitz gather of ``y`` (no integer GEMM on CUDA)."""
     x, y = torch.broadcast_tensors(x, y)
-    band = y[..., fp.table("BAND_IDX", y.device)] * fp.table("BAND_MASK", y.device)
-    return (x.unsqueeze(-1) * band).sum(-2, dtype=torch.int32)
+    return fp._dot(x, fp.band_matrix(y))
 
 
 def fp_mul_plain(x, y):

@@ -43,6 +43,18 @@ the raw packer ships, and an aggregate row is the group element the
 device's masked K-axis sum produces (a sum that is infinity is never
 cached, so it keeps failing through the device's ``agg_inf_bad`` screen).
 
+Threads and CUDA graph captures. :meth:`~DeviceKeyTable.sync`, the
+aggregate inserts and growth write to the card from the calling thread,
+on that thread's current stream: host-to-device copies from pageable
+memory, new tensors, device-side copies. They take no device lock and
+need none. A capture (``graphs.py``) runs in CUDA's "thread_local" mode,
+which bars only the capturing thread from such calls, and the caching
+allocator sends only the capture stream's allocations to the graph's
+private pool; so a sync, an insert or a growth on another thread may run
+while the compile service's worker captures, and none of its memory
+lands in a graph. No graph reads the table's tensors: the gather stays
+eager (``bls.verify_batch_raw_staged_gather`` says why).
+
 One replica lives on the table's ``device`` (``cuda`` by default). The
 process-global seam (:func:`set_table` / :func:`get_active_table`) lets
 :class:`~.bls.CudaBackend` reach the table without a handle.

@@ -1,8 +1,19 @@
 """Batched optimal-ate pairing on BLS12-381, on the card.
 
 Everything is batched over leading dims. The structure follows the JAX
-package's ``pairing.py`` with its FUSED line spelling (the only one
-ported): shared Miller loops, one product, one final exponentiation.
+package's ``pairing.py``: shared Miller loops, one product, one final
+exponentiation. The Miller-loop steps have the JAX package's two
+spellings, chosen by the line engine (``LIGHTHOUSE_TPU_LINE_IMPL`` read at
+import, :func:`set_line_impl` or the :func:`line_impl` context; captured
+graphs are keyed on it, ``graphs.engines``):
+
+* ``fused`` (the default): each step's products in dependency-leveled
+  ``fp2.mul_pairs`` / ``fp2.sq_batch`` batches, the additive glue between
+  them as one ``LinMap`` per level;
+* ``composed``: each step as its individual Fp2 operations (about 13-15
+  ``fp2`` calls per step).
+
+Both give the same canonical values.
 
 * G2 points stay on the twist E'(Fp2) in Jacobian form inside the loop,
   so there are no inversions.
@@ -24,6 +35,9 @@ ported): shared Miller loops, one product, one final exponentiation.
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
 import torch
 
@@ -31,6 +45,45 @@ from ..params import P, R, X
 from . import curve, fp, fp2, linear, tower
 
 X_ABS = -X  # 0xd201000000010000, the positive BLS parameter
+
+
+# ---------------------------------------------------------------------------
+# Line-step engine switch
+# ---------------------------------------------------------------------------
+
+IMPL_LINE_COMPOSED = "composed"
+IMPL_LINE_FUSED = "fused"
+
+_LINE_IMPLS = (IMPL_LINE_COMPOSED, IMPL_LINE_FUSED)
+
+_active_line_impl = os.environ.get("LIGHTHOUSE_TPU_LINE_IMPL", IMPL_LINE_FUSED)
+if _active_line_impl not in _LINE_IMPLS:
+    raise KeyError(f"LIGHTHOUSE_TPU_LINE_IMPL={_active_line_impl!r} unknown; "
+                   f"have {sorted(_LINE_IMPLS)}")
+
+
+def get_line_impl() -> str:
+    return _active_line_impl
+
+
+def set_line_impl(name: str) -> None:
+    """Select the Miller-loop step spelling for later calls (same
+    contract as ``fp.set_impl``)."""
+    global _active_line_impl
+    if name not in _LINE_IMPLS:
+        raise KeyError(f"unknown line impl {name!r}; have {sorted(_LINE_IMPLS)}")
+    _active_line_impl = name
+
+
+@contextlib.contextmanager
+def line_impl(name: str):
+    """Scoped line-engine switch (restores the previous choice)."""
+    prev = _active_line_impl
+    set_line_impl(name)
+    try:
+        yield
+    finally:
+        set_line_impl(prev)
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +167,39 @@ def _scale_batch(pairs):
 
 def _dbl_step(T, xP, yP):
     """Jacobian doubling of T on E'(Fp2) + sparse line coefficients at
+    P = (xP, yP) in G1 affine, under the active line engine. Returns
+    (T2, s0, sv, sv2)."""
+    if _active_line_impl == IMPL_LINE_FUSED:
+        return _dbl_step_fused(T, xP, yP)
+    return _dbl_step_composed(T, xP, yP)
+
+
+def _dbl_step_composed(T, xP, yP):
+    """The doubling and its line as individual Fp2 operations."""
+    Xc, Yc, Zc = T
+    A = fp2.sq(Xc)              # X^2
+    B = fp2.sq(Yc)              # Y^2
+    C = fp2.sq(B)               # Y^4
+    D = fp2.sub(fp2.sq(fp2.add(Xc, B)), fp2.add(A, C))
+    D = fp2.add(D, D)           # 4XY^2
+    E = fp2.add(fp2.add(A, A), A)  # 3X^2
+    F = fp2.sq(E)
+    X3 = fp2.sub(F, fp2.add(D, D))
+    Y3 = fp2.sub(fp2.mul(E, fp2.sub(D, X3)), fp2.mul_small(C, 8))
+    Z3 = fp2.mul(fp2.add(Yc, Yc), Zc)  # 2YZ
+    Z2 = fp2.sq(Zc)
+    # s0 = -2YZ^3 * yP * xi; 2YZ^3 = Z3 * Z2
+    z3z2 = fp2.mul(Z3, Z2)
+    s0 = fp2.mul_by_u_plus_1(fp2.neg(fp2.scale(z3z2, yP)))
+    # sv = 2Y^2 - 3X^3
+    sv = fp2.sub(fp2.add(B, B), fp2.mul(E, Xc))
+    # sv2 = 3X^2 Z^2 * xP
+    sv2 = fp2.scale(fp2.mul(E, Z2), xP)
+    return (X3, Y3, Z3), s0, sv, sv2
+
+
+def _dbl_step_fused(T, xP, yP):
+    """Jacobian doubling of T on E'(Fp2) + sparse line coefficients at
     P = (xP, yP) in G1 affine, in dependency-leveled batches: 3 squaring
     or product batches + 1 product + 1 scale batch, with the additive glue
     between them as LinMaps. Returns (T2, s0, sv, sv2)."""
@@ -130,6 +216,34 @@ def _dbl_step(T, xP, yP):
 
 
 def _add_line(T, xQ, yQ, xP, yP):
+    """Mixed addition T + Q with sparse line coefficients at P, under the
+    active line engine."""
+    if _active_line_impl == IMPL_LINE_FUSED:
+        return _add_line_fused(T, xQ, yQ, xP, yP)
+    return _add_line_composed(T, xQ, yQ, xP, yP)
+
+
+def _add_line_composed(T, xQ, yQ, xP, yP):
+    """The mixed addition and its line as individual Fp2 operations."""
+    Xc, Yc, Zc = T
+    Z2 = fp2.sq(Zc)
+    U2 = fp2.mul(xQ, Z2)
+    S2 = fp2.mul(yQ, fp2.mul(Zc, Z2))
+    H = fp2.sub(U2, Xc)
+    Rr = fp2.sub(S2, Yc)
+    HH = fp2.sq(H)
+    HHH = fp2.mul(H, HH)
+    V = fp2.mul(Xc, HH)
+    X3 = fp2.sub(fp2.sub(fp2.sq(Rr), HHH), fp2.add(V, V))
+    Y3 = fp2.sub(fp2.mul(Rr, fp2.sub(V, X3)), fp2.mul(Yc, HHH))
+    Z3 = fp2.mul(Zc, H)  # = HZ
+    s0 = fp2.mul_by_u_plus_1(fp2.neg(fp2.scale(Z3, yP)))
+    sv = fp2.sub(fp2.mul(Z3, yQ), fp2.mul(Rr, xQ))
+    sv2 = fp2.scale(Rr, xP)
+    return (X3, Y3, Z3), s0, sv, sv2
+
+
+def _add_line_fused(T, xQ, yQ, xP, yP):
     """Mixed addition T + Q with sparse line coefficients at P, in
     dependency-leveled batches: 1 squaring + 4 product batches + 1 scale
     batch."""
@@ -298,6 +412,12 @@ def _product(f, axis: int):
     return curve.tree_reduce(
         f, axis, tower.mul, lambda device: tower.ones((), device)
     )
+
+
+def multi_pairing(g1_aff, g2_aff, axis: int = 0):
+    """prod_i e(P_i, Q_i) over a batch axis: batched Miller loops, the
+    product, one exact final exponentiation. Returns the Fp12 value."""
+    return final_exponentiation(_product(miller_loop(g1_aff, g2_aff), axis))
 
 
 def multi_pairing_is_one(g1_aff, g2_aff, axis: int = 0):

@@ -18,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..cpu.fields import GAMMA6_1, GAMMA6_2, GAMMA12
+from ..cpu.fields import GAMMA6_1, GAMMA6_2, GAMMA12, Fq2, Fq6, Fq12
+from ..params import P
 from . import fp, fp2, linear
 
 # ---------------------------------------------------------------------------
@@ -41,6 +42,10 @@ def f6_ones(shape, device):
     return f6_pack(
         fp2.ones(shape, device), fp2.zeros(shape, device), fp2.zeros(shape, device)
     )
+
+
+def f6_add(x, y):
+    return fp.add(x, y)
 
 
 def f6_sub(x, y):
@@ -126,6 +131,11 @@ def f6_mul(x, y):
 
 def f6_sq(x):
     return f6_mul(x, x)
+
+
+def f6_scale(x, k):
+    """Multiply every Fp2 coefficient by the fp2 element ``k``."""
+    return f6_pack(*fp2.mul_pairs([(f6_c(x, i), k) for i in range(3)]))
 
 
 def f6_mul_by_v(x):
@@ -234,6 +244,17 @@ def is_one(x):
     return (canonical(x) == one).flatten(-4).all(dim=-1)
 
 
+def eq(x, y):
+    return (canonical(x) == canonical(y)).flatten(-4).all(dim=-1)
+
+
+def from_fp2(a):
+    """Embed an fp2 element into Fp12 (constant coefficient)."""
+    out = zeros(a.shape[:-2], a.device)
+    out[..., 0, 0, :, :] = a
+    return out
+
+
 # Frobenius gamma constants (public, derived from xi = 1+u).
 _G6_1 = (GAMMA6_1.c0.n, GAMMA6_1.c1.n)
 _G6_2 = (GAMMA6_2.c0.n, GAMMA6_2.c1.n)
@@ -276,3 +297,29 @@ def pow_const(x, e: int):
     if e == 0:
         return ones(x.shape[:-4], x.device)
     return fp.square_multiply(x, e, sq, mul)
+
+
+# ---------------------------------------------------------------------------
+# Host packing: Fq12 values <-> device arrays
+# ---------------------------------------------------------------------------
+
+def pack_f12(vals) -> np.ndarray:
+    """Host Fq12 values (``c0/c1`` Fq6 of ``c0/c1/c2`` Fq2 of ``c0/c1``
+    with ``.n``) -> int32[n, 2, 3, 2, 32]."""
+    return np.stack([
+        np.stack([
+            np.stack([np.stack([fp.int_to_limbs(c.c0.n), fp.int_to_limbs(c.c1.n)])
+                      for c in (h.c0, h.c1, h.c2)])
+            for h in (v.c0, v.c1)])
+        for v in vals])
+
+
+def unpack_f12(arr) -> list:
+    """Device Fp12 array [..., 2, 3, 2, 32] (any relaxed limbs, any
+    device) -> list of host :class:`~..cpu.fields.Fq12`."""
+    d = canonical(torch.as_tensor(arr)).cpu().numpy().reshape(-1, 2, 3, 2, fp.NL)
+
+    def f2(c):
+        return Fq2.from_ints(fp.limbs_to_int(c[0]) % P, fp.limbs_to_int(c[1]) % P)
+
+    return [Fq12(*(Fq6(*(f2(c) for c in h)) for h in v)) for v in d]

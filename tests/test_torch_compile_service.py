@@ -30,13 +30,13 @@ from lighthouse_tpu_torch.crypto import bls as pbls
 from lighthouse_tpu_torch.crypto.device import bls as dbls
 from lighthouse_tpu_torch.verification_service import planner as pplanner
 
-IMPL = psvc.IMPL
+IMPL = psvc.CompileService._impl()  # the port's active fp.mul engine
 STAGES = ("stage1", "stage2", "stage3")
 
 
 class _JaxService(jsvc.CompileService):
     """The JAX service with the port's engine name (its own reads the JAX
-    field engine, which the port does not have)."""
+    package's active engine, whose default differs from the port's)."""
 
     @staticmethod
     def _impl():

@@ -18,6 +18,7 @@ rung's warm-up (one run of the three stages).
 """
 
 import contextlib
+from collections import Counter
 from unittest import mock
 
 import numpy as np
@@ -85,23 +86,143 @@ def test_captured_program_on_cpu_returns_what_fn_returns():
 
 
 def test_kernel_counters_credit_a_replay():
-    """The capture's counts are rolled back and credited once per replay."""
+    """A capture's counts go to its own sink, not the global counters, and
+    are credited once per replay."""
     kernels.reset_launches()
     kernels._count("fp2_sq", 96)
     snap = kernels.snapshot()
-    kernels._count("fp2_sq", 5)
-    kernels._count("fp2_sq", 5)
-    kernels._count("fp_mul_cols", 7)
-    delta = kernels.since(snap)
+    with kernels.counting_into() as delta:
+        kernels._count("fp2_sq", 5)
+        kernels._count("fp2_sq", 5)
+        kernels._count("fp_mul_cols", 7)
     assert delta["fp2_sq"][:2] == (2, 10) and delta["fp2_mul"][:2] == (0, 0)
-    kernels.restore(snap)
     assert kernels.launches == {"fp_mul_cols": 0, "fp2_mul": 0, "fp2_sq": 1}
+    assert kernels.snapshot() == snap
     for _ in range(3):
         kernels.credit(delta)
     assert kernels.launches == {"fp_mul_cols": 3, "fp2_mul": 0, "fp2_sq": 7}
     assert kernels.lanes["fp2_sq"] == 96 + 30 and kernels.lanes["fp_mul_cols"] == 21
     assert dict(kernels.lane_hist["fp2_sq"]) == {96: 1, 5: 6}
     kernels.reset_launches()
+
+
+def test_capture_sink_is_isolated_from_other_threads():
+    """Two threads: one counts inside a capture sink while the other
+    credits replays and counts its own launches. The sink holds only its
+    own thread's launches and the globals only the other thread's, exact
+    to the launch (the counters take a lock)."""
+    import sys
+    import threading
+
+    kernels.reset_launches()
+    credit = {"fp_mul_cols": (2, 384, Counter({192: 2})),
+              "fp2_mul": (1, 96, Counter({96: 1})), "fp2_sq": (0, 0, Counter())}
+    start = threading.Barrier(2)
+    sinks = []
+
+    def capturing():
+        start.wait(timeout=30)
+        with kernels.counting_into() as sink:
+            for i in range(3000):
+                kernels._count("fp2_sq", 1 + i % 3)
+        sinks.append(sink)
+
+    def traffic():
+        start.wait(timeout=30)
+        for _ in range(3000):
+            kernels.credit(credit)
+            kernels._count("fp_mul_cols", 7)
+
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=f) for f in (capturing, traffic)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(prev)
+    assert not any(t.is_alive() for t in threads)
+    (sink,) = sinks
+    assert sink["fp2_sq"] == (3000, 6000, {1: 1000, 2: 1000, 3: 1000})
+    assert sink["fp_mul_cols"][0] == 0 and sink["fp2_mul"][0] == 0
+    assert kernels.launches == {"fp_mul_cols": 9000, "fp2_mul": 3000, "fp2_sq": 0}
+    assert kernels.lanes == {"fp_mul_cols": 3000 * (384 + 7), "fp2_mul": 3000 * 96,
+                             "fp2_sq": 0}
+    assert dict(kernels.lane_hist["fp_mul_cols"]) == {192: 6000, 7: 3000}
+    kernels.reset_launches()
+
+
+def test_engine_triple_keys_the_graphs_and_the_seen_shapes():
+    """A graph's key and ``_run_stage``'s seen-shape key name the active
+    (fp, fp2, line) engines: a switched engine is a fresh key."""
+    from lighthouse_tpu_torch.crypto.device import fp, fp2, pairing
+
+    x = torch.zeros((2, 32), dtype=torch.int32)
+    default = graphs.CapturedProgram.key((x,))
+    assert default[1] == graphs.engines() == (fp.get_impl(), fp2.get_impl(),
+                                              pairing.get_line_impl())
+    assert graphs.engines() == ("pallas_int8", "fused_pallas", "fused")
+    label, inc = "test_engine_key_stage", (lambda a: a + 1)
+    assert dbls._run_stage(label, inc, x)[2] is True
+    assert dbls._run_stage(label, inc, x)[2] is False
+    for ctx, triple in ((fp.impl("toeplitz_int32"), ("toeplitz_int32", "fused_pallas", "fused")),
+                        (fp2.impl("composed"), ("pallas_int8", "composed", "fused")),
+                        (pairing.line_impl("composed"), ("pallas_int8", "fused_pallas",
+                                                         "composed"))):
+        with ctx:
+            key = graphs.CapturedProgram.key((x,))
+            assert key[1] == triple and key[0] == default[0] and key[2] == default[2]
+            assert dbls._run_stage(label, inc, x)[2] is True
+            assert dbls._run_stage(label, inc, x)[2] is False
+    assert graphs.CapturedProgram.key((x,)) == default
+    assert dbls._run_stage(label, inc, x)[2] is False
+
+
+def test_reset_compiled_state_drops_graphs_seen_shapes_and_registry():
+    from lighthouse_tpu_torch.crypto.device import reset_compiled_state
+
+    prog = graphs.CapturedProgram(lambda a: a, "test_reset_program")
+    x = torch.zeros(3)
+    prog._graphs[prog.key((x,))] = graphs._Graph()  # as a capture leaves it
+    label = "test_reset_stage"
+    assert dbls._run_stage(label, lambda a: a, x)[2] is True
+    assert dbls._run_stage(label, lambda a: a, x)[2] is False
+    svc = psvc.CompileService(rungs=((4, 1, 1),), compile_rung_fn=lambda b, k, m: {},
+                              device="cpu")
+    impl = svc._impl()
+    svc.registry.mark_ready((4, 1, 1), impl)
+    epoch = svc.registry.epoch
+    psvc.set_service(svc)
+    try:
+        reset_compiled_state()
+    finally:
+        psvc.clear_service(svc)
+    assert prog._graphs == {}
+    assert dbls._run_stage(label, lambda a: a, x)[2] is True
+    assert not svc.registry.is_warm((4, 1, 1), impl) and svc.registry.epoch == epoch + 1
+
+
+def test_service_engine_follows_fp_set_impl():
+    """The registry's engine slot is the active fp.mul engine, as the JAX
+    service's: a rung warm under one engine does not route warm under
+    another."""
+    from lighthouse_tpu_torch.crypto.device import fp
+
+    svc = psvc.CompileService(rungs=((4, 1, 1),), compile_rung_fn=lambda b, k, m: {},
+                              device="cpu")
+    assert svc._impl() == fp.get_impl() == "pallas_int8"
+    svc.registry.mark_ready((4, 1, 1), svc._impl())
+    assert svc.route(3, 1, 1)["action"] == "warm"
+    for name in ("toeplitz_int32", "matmul_int8"):
+        with fp.impl(name):
+            assert svc._impl() == name
+            r = svc.route(3, 1, 1)
+            assert r["action"] == "shed" and r["fp_impl"] == name
+    assert svc.route(3, 1, 1) == {"action": "warm", "rung": (4, 1, 1),
+                                  "exact": (4, 1, 1), "fp_impl": "pallas_int8",
+                                  "device": 0}
 
 
 def test_constant_cache_fills_once_under_threads():
@@ -238,12 +359,13 @@ def _sets(poison: bool):
 
 
 def test_warm_staged_marks_the_rung_warm_on_cpu(service):
+    impl = psvc.CompileService._impl()
     st = service.status()
-    assert st["warm_rungs"] == [[*RUNG, psvc.IMPL]]
+    assert st["warm_rungs"] == [[*RUNG, impl]]
     assert st["failed_total"] == 0 and st["compiled_total"] == 1
     assert set(st["stages"]["4x2x2"]) == set(lowering.STAGES)
     assert service.route(3, 1, 2) == {"action": "padded", "rung": RUNG,
-                                      "exact": (4, 1, 2), "fp_impl": psvc.IMPL,
+                                      "exact": (4, 1, 2), "fp_impl": impl,
                                       "device": 0}
 
 
@@ -265,4 +387,4 @@ def test_batch_pads_to_the_warm_rung_and_matches_cpu_native(service, poison, mon
     assert lb["warm"] is True and set(lb["stages"]) == set(lowering.STAGES)
     costs = service.measured_rung_costs()["rungs"]["4x2x2@dev0"]
     assert costs["dispatches"] >= 1 and costs["sum_sets"] >= 3
-    assert service.status()["warm_rungs"] == [[*RUNG, psvc.IMPL]]
+    assert service.status()["warm_rungs"] == [[*RUNG, psvc.CompileService._impl()]]

@@ -8,10 +8,14 @@ the JAX package, so it also runs on a machine without them:
 
 Tolerances: K1 raw columns and reduced limbs equal to the plain versions
 (exact integers, same reduction plan); K2/K3 canonical-equal with limbs
-in [0, 8191]; verdicts as expected. Lane counts 1 to 3474 cover one lane,
+in [0, 8191]; the composed engines canonical-equal to K1-K3, limbs in
+[0, 8191]; verdicts as expected; a warm verify beside another thread's
+capture under 1.0 s. Lane counts 1 to 3474 cover one lane,
 ragged blocks and the largest K2 launch of the verify path; K3 is also
 held limb for limb at every lane count the verify path launches it with.
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -298,3 +302,111 @@ def test_hashed_and_aggregate_verify_programs_capture_and_replay(dev):
     for _ in range(2):
         assert agg.aggregate_verify(ms, pks, device=str(dev)) is True
     assert agg.aggregate_verify(ms[::-1], pks, device=str(dev)) is False
+
+
+# ---------------------------------------------------------------------------
+# A capture on another thread never stalls a warm replay
+# ---------------------------------------------------------------------------
+
+def _gossip_like(first: int, poison: bool):
+    """Four single-signer sets over two messages (rung (4, 1, 2)); poisoned,
+    the last set is signed by the wrong key."""
+    from lighthouse_tpu_torch.crypto import bls
+
+    sks = [bls.SecretKey(first + i) for i in range(4)]
+    msgs = [b"\x71" * 32, b"\x71" * 32, b"\x72" * 32, b"\x72" * 32]
+    signers = [0, 1, 2, 2 if poison else 3]
+    return [(bls.Signature.deserialize(sks[s].sign(m).serialize()),
+             [sks[i].public_key().point], m)
+            for i, (s, m) in enumerate(zip(signers, msgs))]
+
+
+def test_cold_rung_capture_never_stalls_a_warm_verify(dev):
+    """The compile service's worker captures a cold rung while another
+    thread verifies on a warm rung: every warm verify's wall stays under
+    1.0 s (a stage-3 capture alone takes 2.4 s or more on an H100), its
+    verdict is right, and the global counters end at exactly the warm
+    verifies' credits plus the worker's eager warm-ups."""
+    import time
+
+    from lighthouse_tpu_torch.compile_service import lowering
+    from lighthouse_tpu_torch.compile_service.service import CompileService
+    from lighthouse_tpu_torch.crypto.device import graphs
+    from lighthouse_tpu_torch.crypto.device.bls import CudaBackend
+
+    valid, poisoned = _gossip_like(501, False), _gossip_like(501, True)
+    backend = CudaBackend(device=dev)
+    assert backend.verify_signature_sets(valid) is True  # captures the rung
+    kernels.reset_launches()
+    assert backend.verify_signature_sets(valid) is True
+    assert backend.last_batch["warm"] and backend.last_batch["rung"] == (4, 1, 2)
+    eager = kernels.snapshot()
+    cold = (24, 2, 4)
+    cold_args = lowering.staged_dummy_args(*cold, device=dev)
+    progs = lowering.staged_captured()
+    assert all(progs[s].graph_for(*cold_args[s]) is None for s in lowering.STAGES)
+
+    svc = CompileService(rungs=(cold,), device=dev)  # not attached: no re-routing
+    kernels.reset_launches()
+    walls, wrong = [], []
+    t0 = time.perf_counter()
+    svc.start()
+    try:
+        while True:
+            st = svc.status()
+            if st["in_flight"] is None and not st["queue"]:
+                break
+            for sets, want in ((valid, True), (poisoned, False)):
+                t = time.perf_counter()
+                got = backend.verify_signature_sets(sets)
+                walls.append(time.perf_counter() - t)
+                if got is not want or not backend.last_batch["warm"]:
+                    wrong.append((want, got, backend.last_batch))
+        assert svc.wait_idle(timeout=300)
+    finally:
+        svc.stop()
+    span = time.perf_counter() - t0
+    st = svc.status()
+    assert st["compiled_total"] == 1 and st["failed_total"] == 0, st["last_error"]
+    cold_graphs = [progs[s].graph_for(*cold_args[s]) for s in lowering.STAGES]
+    assert all(g is not None for g in cold_graphs)
+    capture_s = sum(g.capture_s + g.warmup_s for g in cold_graphs)
+    assert not wrong, wrong
+    assert len(walls) >= 4, (walls, capture_s, span)
+    assert max(walls) < 1.0, (walls, capture_s)
+    # exact counts: each warm verify credits the eager counts, the worker's
+    # warm-ups add their real launches (equal to each graph's credit)
+    want = {k: (0, 0, Counter()) for k in kernels.launches}
+    for delta in [eager] * len(walls) + [g.credit for g in cold_graphs]:
+        want = {k: (want[k][0] + n, want[k][1] + l, want[k][2] + h)
+                for k, (n, l, h) in delta.items()}
+    assert kernels.snapshot() == want
+    waits = graphs.status()["lock_wait_s"]
+    print(f"warm walls {[round(w, 4) for w in walls]} during {capture_s:.2f} s of "
+          f"cold-rung warm-up and capture; lock waits {waits}")
+
+
+# ---------------------------------------------------------------------------
+# The composed engines against the kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fp2_engine", ["composed", "fused_pallas"])
+@pytest.mark.parametrize("fp_engine", ["toeplitz_int32", "matmul_int8", "pallas_int8"])
+def test_engines_equal_the_kernels_at_path_lanes(dev, fp_engine, fp2_engine):
+    """``fp.mul``, ``fp2.mul`` and ``fp2.sq`` under each engine pair are
+    canonical-equal to K1, K2 and K3 at the path's lane counts (K1 up to
+    the raw block verify's 147,456 lanes; K2 up to 3,474; K3 up to 960),
+    limbs in [0, 8191]."""
+    from lighthouse_tpu_torch.crypto.device import fp2
+
+    rng = np.random.default_rng(31)
+    with fp.impl(fp_engine), fp2.impl(fp2_engine):
+        for lanes in (1, 192, 147456):
+            x, y = (torch.from_numpy(_limbs(rng, lanes)).to(dev) for _ in range(2))
+            _canonical_equal(fp.mul(x, y), kernels.fp_mul(x, y))
+        for lanes in (1, 960, 3474):
+            a, b = (torch.from_numpy(_limbs(rng, lanes, 2)).to(dev) for _ in range(2))
+            _canonical_equal(fp2.mul(a, b), kernels.fp2_mul(a, b))
+        for lanes in (1, 96, 960):
+            a = torch.from_numpy(_limbs(rng, lanes, 2)).to(dev)
+            _canonical_equal(fp2.sq(a), kernels.fp2_sq(a))
