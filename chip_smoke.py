@@ -61,7 +61,27 @@ plain torch version on the card. Phases, in order; any failure raises:
    (a capture, then a replay) and poisoned, each triple's capture
    seconds, nodes and walls; then the default triple's graphs replay
    with no new capture;
-12. kernel timings where the path runs them: each kernel checked again and
+12. serve: the port's ``VerificationScheduler`` with the phase-9 compile
+   service attached and its default verifier (the card), replaying
+   ``traffic.gossip_steady`` (``SERVE_DURATION_S`` seconds at the
+   generator's mainnet-shaped rates) three times, each event submitted at
+   its time as a real signed set of its kind: a cold pass (flushes route
+   warm, or padded onto a warm rung while the worker warms their exact
+   rungs), ``wait_idle``, a warm pass with one attestation signed over the
+   wrong message and the phase-4 and phase-6 block batches through
+   ``verify_now`` (with ``--planner-off`` run again with the flush planner
+   off, every flush one rung, to compare), and a shed pass through a
+   second compile service that holds only ``SERVE_SHED_RUNG``: the first
+   flush of each geometry sheds to the C fallback while that service's
+   worker warms its rung. Per pass: submissions, flushes, sub-batches,
+   routes and fallback calls, each kind's p50/p99 submit-to-verdict
+   latency and miss ratio by path, bisections, the K1-K3 launches
+   credited, the graphs captured and the ``verify_now`` walls; each
+   pass's lane counts join phase 13's. Every verdict must be right (the
+   poisoned one alone False), the warm pass must shed nothing and launch
+   K1-K3, the shed pass must serve a shed flush on the fallback, and the
+   fallback is ``cpu-native``. The phase ends when the service is idle;
+13. kernel timings where the path runs them: each kernel checked again and
    timed (device ms per launch, launches queued back to back behind a
    device sleep, CUDA events) with its plain version and its bound at 1
    lane, at the most frequent and at the largest lane count of the block
@@ -69,7 +89,7 @@ plain torch version on the card. Phases, in order; any failure raises:
    and at the shapes earlier versions timed; beside them the launch
    floor, the device time per launch of a one-element in-place add
    queued the same way;
-13. two more valid verifies, graph replays, of each raw batch, of the
+14. two more valid verifies, graph replays, of each raw batch, of the
    gathered block batch and of the collapsed block batch: one timed by
    CUDA events around the replays, one under torch.profiler (which sees
    the kernels inside the graphs): the device busy share, and for the raw
@@ -143,6 +163,16 @@ WARM_WALL_LIMIT_S = 1.0
 ENGINE_TRIPLES = (("toeplitz_int32", "composed", "composed"),
                   ("matmul_int8", "composed", "composed"),
                   ("pallas_int8", "composed", "composed"))
+# The serve phase's trace: traffic.gossip_steady at its own mainnet-shaped
+# rates (40 unaggregated, 12 aggregates, 6 sync messages per second) for
+# this many seconds; its pools: committees of 8 signers (one attestation
+# message each) and sync-committee signers over one block root.
+SERVE_DURATION_S = 8.0
+SERVE_COMMITTEES = 7
+SERVE_SYNC = 16
+# the shed pass's second compile service warms only this rung: the
+# precomputed committee's (phase 8), which phase 9 captures
+SERVE_SHED_RUNG = (1, 1, 1)
 # The MSM phase's point counts: the top MSM rung (a mainnet committee) for
 # G1 with random u64 scalars, and 128 points for the G2 sum.
 MSM_N = 512
@@ -1256,6 +1286,278 @@ def engine_phase(backend, sets, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The verification scheduler serving gossip traffic on the card
+# ---------------------------------------------------------------------------
+
+def serve_pools(rng, s0: int):
+    """Signed sets for the serve phase, as the scheduler's callers hand
+    them over (``bls.SignatureSet``), one pool per caller kind of
+    ``traffic.gossip_steady``: 56 unaggregated attestations of 7
+    committees of 8 (K = 1), each committee's aggregate of its 8 (K = 8),
+    and 16 sync-committee messages over one block root (K = 1). The 7
+    attestation messages and the block root keep a flush's distinct
+    messages within 8, the M of the warm gossip rungs. Also returns one
+    attestation signed over the wrong message (another committee's)."""
+    from lighthouse_tpu_torch.crypto.bls import PublicKey, Signature, SignatureSet
+    from lighthouse_tpu_torch.crypto.cpu.hash_to_curve import hash_to_g2
+    from lighthouse_tpu_torch.crypto.params import DST, R
+
+    keys = [PublicKey(p) for p in make_keys(s0, SERVE_COMMITTEES * 8 + SERVE_SYNC)]
+    msgs = [rng.bytes(32) for _ in range(SERVE_COMMITTEES + 1)]
+    hs = [hash_to_g2(m, DST) for m in msgs]
+    pools = {"unaggregated": [], "aggregate": [], "sync_message": []}
+    for c in range(SERVE_COMMITTEES):
+        sig = hs[c].mul((s0 + 8 * c) % R)
+        total = None
+        for j in range(8):
+            i = 8 * c + j
+            pools["unaggregated"].append(SignatureSet(
+                Signature.deserialize(sig.compress()), [keys[i]], msgs[c]))
+            total = sig if total is None else total + sig
+            sig = sig + hs[c]
+        pools["aggregate"].append(SignatureSet(
+            Signature.deserialize(total.compress()), keys[8 * c: 8 * c + 8], msgs[c]))
+    s_sync = s0 + 8 * SERVE_COMMITTEES
+    sig = hs[-1].mul(s_sync % R)
+    for j in range(SERVE_SYNC):
+        pools["sync_message"].append(SignatureSet(
+            Signature.deserialize(sig.compress()), [keys[8 * SERVE_COMMITTEES + j]],
+            msgs[-1]))
+        sig = sig + hs[-1]
+    good = pools["unaggregated"][0]
+    poisoned = SignatureSet(good.signature, good.signing_keys, msgs[1])
+    return pools, poisoned
+
+
+def _route_counts(svc) -> dict:
+    st = svc.status()
+    return {**st["cold_routes"], "fallback_calls": st["fallback"]["calls"]}
+
+
+def serve_pass(label, svc, events, pools, extra=(), bypass=(), **sched_kw):
+    """Replay ``events`` (a ``traffic`` trace) through a fresh
+    ``VerificationScheduler`` with ``svc`` attached, its default
+    ``verify_fn`` (the port's ``bls.verify_signature_sets``, on the card)
+    and ``sched_kw``:
+    this thread submits each event at its time ``t``, a set drawn in turn
+    from its kind's pool; ``extra`` holds (t, kind, set, verdict) to
+    submit as well; a second thread calls ``verify_now`` with each
+    (t, sets) of ``bypass``. Every verdict must be right. Prints and
+    returns the pass's counts, routes (``warm`` is every routed dispatch,
+    sub-batches and ``verify_now`` calls, less the padded and shed ones),
+    latencies, captures and the kernels' lane histogram (``lane_hist``)."""
+    import threading
+
+    from lighthouse_tpu_torch.crypto.device import graphs, kernels
+    from lighthouse_tpu_torch.verification_service import VerificationScheduler
+
+    drawn = dict.fromkeys(pools, 0)
+    items = []
+    for ev in events:
+        pool = pools[ev["kind"]]
+        items.append((ev["t"], ev["kind"], pool[drawn[ev["kind"]] % len(pool)], True))
+        drawn[ev["kind"]] += 1
+    items = sorted([*items, *extra], key=lambda it: it[0])
+    routes0, stages0 = _route_counts(svc), dict(svc.status()["stages"])
+    graphs0 = graphs.status()["programs"]
+    sched = VerificationScheduler(compile_service=svc, **sched_kw).start()
+    walls_now, errors = [], []
+
+    def blocks():
+        for t, sets in bypass:
+            time.sleep(max(0.0, t0 + t - time.perf_counter()))
+            w0 = time.perf_counter()
+            try:
+                if sched.verify_now(sets, "block") is not True:
+                    errors.append(f"verify_now at t={t}: False for a valid block batch")
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"verify_now at t={t}: {e!r}")
+            walls_now.append(time.perf_counter() - w0)
+
+    # this stream only: a device-wide sync is refused while the compile
+    # service's worker captures, and invalidates that capture
+    torch.cuda.current_stream().synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    blocker = threading.Thread(target=blocks, name="serve-blocks")
+    blocker.start()
+    futs = []
+    for t, kind, s, want in items:
+        time.sleep(max(0.0, t0 + t - time.perf_counter()))
+        futs.append((t, kind, want, sched.submit([s], kind)))
+    submitted_s = time.perf_counter() - t0
+    for t, kind, want, f in futs:
+        got = f.result(timeout=WARM_TIMEOUT_S)
+        if got is not want:
+            errors.append(f"{kind} submitted at t={t}: verdict {got}, expected {want}")
+    blocker.join()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    hist = {k: dict(h) for k, h in kernels.lane_hist.items()}
+    sched.stop()
+    if errors:
+        raise AssertionError(f"serve {label}: " + "; ".join(errors[:10]))
+    st, slo = sched.status(), sched.slo_summary()
+    routes1 = _route_counts(svc)
+    routes = {k: routes1[k] - routes0[k] for k in routes1}
+    routes = {"warm": st["fused_batches_total"] + len(bypass) - routes["padded"]
+              - routes["shed"], **routes}
+    stages1 = svc.status()["stages"]
+    warmed = {r: round(sum(v["seconds"] for v in recs.values()), 3)
+              for r, recs in stages1.items() if r not in stages0}
+    new_graphs = {}
+    for prog, recs in graphs.status()["programs"].items():
+        for key, rec in recs.items():
+            if key not in graphs0.get(prog, {}):
+                new_graphs[f"{prog} {key.split(' ', 2)[-1]}"] = round(rec["capture_s"], 3)
+    out = {
+        "submissions": len(futs) + len(bypass),
+        "flushes": st["planner"]["plans_planned_total"] + st["planner"]["plans_single_total"],
+        "sub_batches": st["fused_batches_total"],
+        "planned_flushes": st["planner"]["plans_planned_total"],
+        "buckets_seen": st["buckets_seen"],
+        "routes": routes,
+        "bisections": st["bisections_total"],
+        "launches": launches,
+        "wall_s": wall,
+        "submit_s": submitted_s,
+        "verify_now_walls_s": walls_now,
+        "rungs_warmed": warmed,
+        "graphs_captured": new_graphs,
+        "slo": {k: {f: v[f] for f in ("count_total", "p50_ms", "p99_ms", "max_ms",
+                                      "window_miss_ratio")} | {
+                    "paths": {p: [d["count"], d["p50_ms"], d["p99_ms"]]
+                              for p, d in v["paths"].items()}}
+                for k, v in slo["kinds"].items()},
+        "budget_ms": slo["budget_ms"],
+        "lane_hist": hist,
+    }
+    log(f"serve {label}: {out['submissions']} submissions ({len(futs)} submitted over "
+        f"{submitted_s:.2f} s, {len(bypass)} verify_now), {out['flushes']} flushes "
+        f"({out['planned_flushes']} planned), {out['sub_batches']} sub-batches, buckets "
+        f"{out['buckets_seen']}; wall {wall:.2f} s; every verdict right")
+    log(f"  routes {json.dumps(routes)}; bisections {out['bisections']}; K1-K3 launches "
+        f"credited {json.dumps(launches)}")
+    for kind, v in out["slo"].items():
+        log(f"  {kind}: {v['count_total']} verdicts, p50 {v['p50_ms']} ms, p99 "
+            f"{v['p99_ms']} ms, max {v['max_ms']} ms, miss ratio {v['window_miss_ratio']} "
+            f"(budget {out['budget_ms']} ms); by path [count, p50, p99] "
+            f"{json.dumps(v['paths'])}")
+    log(f"  verify_now walls {[round(w, 4) for w in walls_now]} s")
+    log(f"  rungs the worker warmed during the pass (stage seconds): {json.dumps(warmed)}")
+    log(f"  graphs captured during the pass: {len(new_graphs)}, capture s "
+        f"{json.dumps(new_graphs)}")
+    log(f"  {card_line()}")
+    return out
+
+
+def shed_pass(events, pools, rung, dev) -> dict:
+    """The trace again, through a second compile service whose ladder is
+    only ``rung`` (a rung phase 9 captured, so it is warm at once). It is
+    not the attached service, so ``decide_flush`` downgrades ``padded`` to
+    ``shed``: the first flush of every other geometry is served by
+    ``fallback_verify`` on the C verifier while this service's worker
+    warms the flush's exact rung (graphs the earlier passes captured, so
+    each warm-up is a replay); later flushes of that geometry run on the
+    card. Holds every verdict, at least one shed flush served by the
+    fallback, and the fallback backend ``cpu-native``."""
+    from lighthouse_tpu_torch.compile_service import service as csvc
+
+    csvc.set_msm_warm_enabled(False)  # the MSM ladder is the attached service's
+    shed_svc = csvc.CompileService(rungs=[rung], device=dev).start()
+    if not shed_svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError(f"serve shed pass: the second service did not warm {rung}")
+    out = serve_pass(f"shed pass (a second service, ladder [{rung}])", shed_svc, events,
+                     pools)
+    if not shed_svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError("serve shed pass: the second service is not idle")
+    shed_svc.stop()
+    csvc.set_msm_warm_enabled(True)
+    fb = shed_svc.status()["fallback"]
+    if fb["backend"] != "cpu-native":
+        raise AssertionError(f"serve shed pass: the fallback backend is {fb['backend']}")
+    if not out["routes"]["shed"] or not out["routes"]["fallback_calls"]:
+        raise AssertionError(f"serve shed pass: routes {out['routes']}: no shed served")
+    out["fallback"] = fb
+    paths = {k: v["paths"]["fallback"] for k, v in out["slo"].items()
+             if "fallback" in v["paths"]}
+    log(f"  fallback {fb['backend']}: {fb['calls']} calls, {fb['sets']} sets, "
+        f"{fb['seconds']:.4f} s in all; fallback path by kind [count, p50 ms, p99 ms] "
+        f"{json.dumps(paths)}")
+    return out
+
+
+def serve_phase(rng, svc, block_batches, dev, planner_off=False) -> dict:
+    """The port's ``VerificationScheduler`` on the card, with the phase-9
+    compile service attached and the default ``verify_fn``: a replay of
+    ``traffic.gossip_steady(duration_s=SERVE_DURATION_S, seed=0)`` in
+    three passes. The cold pass meets whatever rungs its flushes ask for
+    (warm, or padded onto a larger warm rung while the worker warms the
+    exact one); after ``svc.wait_idle()`` the warm pass adds one poisoned
+    attestation and two block batches through ``verify_now`` (with
+    ``planner_off`` it runs again with the flush planner off, every flush
+    one rung, to compare); the shed pass (:func:`shed_pass`) routes flushes
+    to the C fallback. Ends when the service is idle. Holds every verdict,
+    no shed in the warm pass, K1-K3 launched in the warm pass, and the
+    fallback backend ``cpu-native``."""
+    from lighthouse_tpu_torch.crypto.bls import PublicKey, SignatureSet
+    from lighthouse_tpu_torch.verification_service import traffic
+
+    events = traffic.gossip_steady(duration_s=SERVE_DURATION_S, seed=0, rate_scale=1.0)
+    counts = {k: sum(1 for e in events if e["kind"] == k)
+              for k in ("unaggregated", "aggregate", "sync_message")}
+    t0 = time.perf_counter()
+    pools, poisoned = serve_pools(rng, 300_000)
+    log(f"serve trace: gossip_steady({SERVE_DURATION_S} s, seed 0): {len(events)} "
+        f"submissions {json.dumps(counts)}; pools signed on the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    st = svc.status()["fallback"]
+    if st["backend"] != "cpu-native":
+        raise AssertionError(f"serve: the fallback backend is {st['backend']}")
+    t0 = time.perf_counter()
+    ok = svc.fallback_verify(pools["aggregate"][:2])
+    bad = svc.fallback_verify([pools["unaggregated"][1], poisoned])
+    if ok is not True or bad is not False:
+        raise AssertionError(f"serve: fallback_verify gave {ok}, {bad} (want True, False)")
+    log(f"fallback {st['backend']} (C build and two batches) {time.perf_counter() - t0:.3f} s: "
+        "valid True, poisoned False")
+    out = {"trace": {"events": len(events), **counts}}
+    out["cold"] = serve_pass("cold pass", svc, events, pools)
+    t0 = time.perf_counter()
+    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError(f"serve: the compile service is not idle after {WARM_TIMEOUT_S} s")
+    out["wait_idle_s"] = time.perf_counter() - t0
+    log(f"serve: the worker finished the rungs the cold pass asked for in "
+        f"{out['wait_idle_s']:.2f} s more; warm rungs {svc.status()['warm_rungs']}")
+    to_sets = [[SignatureSet(sig, [PublicKey(p) for p in pks], m) for sig, pks, m in batch]
+               for batch in block_batches]
+    half = SERVE_DURATION_S / 2
+    warm_kw = dict(extra=[(half, "unaggregated", poisoned, False)],
+                   bypass=[(half / 2, to_sets[0]), (half * 1.5, to_sets[1])])
+    out["warm"] = serve_pass("warm pass", svc, events, pools, **warm_kw)
+    w = out["warm"]
+    if w["routes"]["shed"] or w["routes"]["fallback_calls"]:
+        raise AssertionError(f"serve warm pass: routes {w['routes']}: a shed")
+    missing = [k for k in KERNELS if not w["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"serve warm pass: kernels never launched: {missing}")
+    if planner_off:
+        out["warm_single"] = serve_pass(
+            "warm pass, single-rung plans (plan_flushes=False)", svc, events, pools,
+            plan_flushes=False, **warm_kw)
+    out["shed"] = shed_pass(events, pools, SERVE_SHED_RUNG, dev)
+    # no capture of a rung the passes queued may overlap the timed phases
+    t0 = time.perf_counter()
+    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError(f"serve: the compile service is not idle after {WARM_TIMEOUT_S} s")
+    out["end_wait_idle_s"] = time.perf_counter() - t0
+    log(f"serve: the attached service was idle {out['end_wait_idle_s']:.2f} s after "
+        "the last pass")
+    out["fallback"] = svc.status()["fallback"]
+    return out
+
+
 def warm_phase(rng, dev, backend, table, batches, path_rungs, eager, refs) -> dict:
     """Drop the graphs the earlier phases captured on first use, start a
     compile service over the batches' rungs then ``DEFAULT_RUNGS`` (the
@@ -1314,6 +1616,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quick", action="store_true",
                     help="build, kernel checks and timings, one tiny verify")
+    ap.add_argument("--planner-off", action="store_true",
+                    help="serve phase: also replay the warm pass with the flush "
+                         "planner off (every flush one rung), to compare")
     ap.add_argument("--time-only", metavar="ROOT",
                     help="only check and time the kernels of the checkout at ROOT "
                          "(--quick's lane counts and the earlier shapes) and print "
@@ -1491,7 +1796,16 @@ def main() -> int:
     warm["engines"] = engine_phase(backend, sets, dev)
     log(card)
 
-    log("phase 12 every kernel checked against its plain version and timed at "
+    log("phase 12 serve: the verification scheduler on the card, the phase-9 compile "
+        "service attached, replaying gossip_steady cold, warm, then shed to the C fallback")
+    warm["serve"] = serve_phase(rng, warm["service"], [bsets, gbsets], dev,
+                                args.planner_off)
+    for p in ("cold", "warm", "warm_single", "shed"):
+        if p in warm["serve"]:
+            hists[f"serve {p}"] = warm["serve"][p].pop("lane_hist")
+    log(card)
+
+    log("phase 13 every kernel checked against its plain version and timed at "
         "each path's lane counts (device ms per launch, launches queued back to back)")
     gc.collect()  # the engine phase's garbage, before the timed queueing
     shapes = path_shapes(hists)
@@ -1500,7 +1814,7 @@ def main() -> int:
     launch_floor(dev, card)
     # profiled after every timed run: a torch.profiler session slows the
     # launches that follow it (35-45% on an H100)
-    log("phase 13 profiles (graph replays)")
+    log("phase 14 profiles (graph replays)")
     key_table.clear_table(table)  # the raw batches' keys are not the registry's
     served = {k: v["wall"] for k, v in warm["paths"].items()}
     gdev = profile_verify(backend, sets, "gossip valid", served["gossip"])

@@ -17,14 +17,21 @@ module keeps that off the hot path:
   rung (B, K, M) can dispatch without a capture: ``warm`` (its graphs
   exist), ``padded`` (a larger warm rung covers it: pad up) or ``shed``
   (nothing warm). ``CudaBackend`` pads its batches to the rung
-  :meth:`CompileService.pads_for` names.
+  :meth:`CompileService.pads_for` names;
+* **the shed fallback**: the verification scheduler
+  (``verification_service/batcher.py``) routes every flush through
+  :meth:`CompileService.decide_flush` and serves a ``shed`` one through
+  :meth:`CompileService.fallback_verify`, a synchronous verify on the C
+  verifier (``crypto/native.py``, backend ``cpu-native``) while the
+  worker captures the rung. A cold rung never stalls a flush. The JAX
+  service falls back further, to its pure-Python pairing, when the C
+  build fails; the port has no host pairing, so a failed build raises.
 
 Left out, and why (``ROADMAP.md``): the persistent compile cache and
 its manifest (``cache.py``; a CUDA graph cannot be written to disk, and
-the kernels' nvcc build already persists under ``_build/``); the CPU
-fallback verifier of shed flushes (it has no caller until the
-verification scheduler is ported; ``route`` still answers ``shed``);
-mesh devices other than 0; the metrics and journal hooks.
+the kernels' nvcc build already persists under ``_build/``); mesh
+devices other than 0; the metrics and journal hooks other than the
+fallback's wall histogram.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import time
 from collections import deque
 from typing import Callable, Iterable, Optional, Tuple
 
+from ..utils import metrics, tracing
 from ..verification_service import planner as _planner
 from ..verification_service.planner import Rung, round_up_bucket
 
@@ -93,6 +101,15 @@ _ENV_RETRY_CAP = "LIGHTHOUSE_TPU_COMPILE_RETRY_MAX_S"
 DEFAULT_RETRY_MAX_ATTEMPTS = 3
 DEFAULT_RETRY_BASE_S = 1.0
 DEFAULT_RETRY_MAX_S = 60.0
+
+
+_FALLBACK_SECONDS = metrics.histogram(
+    "compile_service_fallback_verify_seconds",
+    "wall time of one synchronous CPU fallback verify of a shed flush — "
+    "the latency a submission pays on the SLO layer's `fallback` "
+    "resolution path (verification_scheduler_verdict_latency_seconds"
+    "{path=fallback}) while the cold rung's graphs are captured behind it",
+)
 
 
 def _env_int(name: str, default: int) -> int:
@@ -205,23 +222,30 @@ class WarmShapeRegistry:
 
 class CompileService:
     """Background AOT capture and warm-shape router for the staged
-    verifier (see the module docstring). ``compile_rung_fn(b, k, m)`` is
-    injectable for tests; the default captures the rung's stage graphs on
-    ``device`` through :func:`lowering.warm_staged` (``cuda`` unless the
-    caller asks for the CPU, where nothing is captured and the stages run
-    once eagerly)."""
+    verifier (see the module docstring). ``compile_rung_fn(b, k, m)`` and
+    ``fallback_verify_fn(sets)`` are injectable for tests; the defaults
+    capture the rung's stage graphs on ``device`` through
+    :func:`lowering.warm_staged` (``cuda`` unless the caller asks for the
+    CPU, where nothing is captured and the stages run once eagerly) and
+    verify shed flushes on the C verifier (``cpu-native``)."""
 
     def __init__(
         self,
         rungs: Optional[Iterable[Rung]] = None,
         compile_rung_fn: Optional[Callable[[int, int, int], dict]] = None,
         device="cuda",
+        fallback_verify_fn: Optional[Callable[[list], bool]] = None,
     ):
         self.plan: Tuple[Rung, ...] = tuple(
             tuple(r) for r in (rungs or _env_rungs() or DEFAULT_RUNGS)
         )
         self.device = device
         self._compile_rung_fn = compile_rung_fn
+        self._fallback_fn = fallback_verify_fn
+        self._fallback_backend = None
+        self._fallback_calls = 0
+        self._fallback_sets = 0
+        self._fallback_seconds = 0.0
         self.registry = WarmShapeRegistry()
         self._cv = threading.Condition()
         # work items are (rung, mesh device); only device 0 is queued
@@ -355,7 +379,8 @@ class CompileService:
         pubkeys per set and ``m_req`` distinct messages:
         ``{"action": warm|padded|shed, "rung": (B, K, M) | None, "exact":
         (B, K, M), "fp_impl": impl, "device": device}``. A registry read;
-        :meth:`decide_flush` does the accounting."""
+        :meth:`decide_flush` does the accounting, and the verification
+        scheduler serves a ``shed`` through :meth:`fallback_verify`."""
         impl = self._impl()
         exact = (
             round_up_bucket(n_sets),
@@ -423,6 +448,58 @@ class CompileService:
         """Pad target for the packers: the warm rung a warm or padded
         route lands on, or None (the packers then round up themselves)."""
         return self.route(n_sets, k_req, m_req, device=int(device))["rung"]
+
+    # -- fallback ---------------------------------------------------------
+
+    def fallback_verify(self, sets) -> bool:
+        """Synchronous host verification of a shed flush on the C
+        verifier (``cpu-native``), verdict-identical to the device call,
+        including the device backend's infinity pre-screens; exceptions
+        propagate like the direct call's would (the scheduler's bisection
+        delivers them to exactly the leaf submission that caused them).
+        A failed C build raises: there is no further fallback."""
+        t0 = time.perf_counter()
+        try:
+            with tracing.span(
+                "compile_service.fallback_verify", n_sets=len(sets)
+            ), _FALLBACK_SECONDS.time():
+                if self._fallback_fn is not None:
+                    return bool(self._fallback_fn(list(sets)))
+                from ..crypto import bls as _bls
+
+                prepared = []
+                for item in sets:
+                    if isinstance(item, _bls.SignatureSet):
+                        if not item.signing_keys or item.signature.is_infinity():
+                            return False
+                        if any(pk.point.is_infinity() for pk in item.signing_keys):
+                            return False
+                        prepared.append(
+                            (
+                                item.signature,
+                                [pk.point for pk in item.signing_keys],
+                                item.message,
+                            )
+                        )
+                    else:
+                        prepared.append(item)
+                return bool(
+                    self._fallback_backend_inst().verify_signature_sets(
+                        prepared
+                    )
+                )
+        finally:
+            with self._cv:
+                self._fallback_calls += 1
+                self._fallback_sets += len(sets)
+                self._fallback_seconds += time.perf_counter() - t0
+
+    def _fallback_backend_inst(self):
+        if self._fallback_backend is None:
+            from ..crypto.native import NativeBackend
+
+            self._fallback_backend = NativeBackend()
+        return self._fallback_backend
 
     # -- warmth notification ---------------------------------------------
 
@@ -606,8 +683,9 @@ class CompileService:
     # -- introspection ----------------------------------------------------
 
     def status(self) -> dict:
-        """The warm surface, queue, retries, cold-route counts, measured
-        rung costs, each warmed rung's per-stage seconds, and the captured
+        """The warm surface, queue, retries, cold-route counts, the shed
+        fallback (its backend, calls, sets and seconds), measured rung
+        costs, each warmed rung's per-stage seconds, and the captured
         graphs (``graphs.status()``: nodes, pool bytes, lock waits)."""
         from ..crypto.device import graphs
 
@@ -635,6 +713,16 @@ class CompileService:
                     ],
                 },
                 "msm_warm": sorted(n for _i, _d, n in self._msm_warmed),
+                "fallback": {
+                    # the C verifier, or a test's fallback_verify_fn
+                    "backend": (
+                        "cpu-native" if self._fallback_fn is None else "injected"
+                    ),
+                    "built": self._fallback_backend is not None,
+                    "calls": self._fallback_calls,
+                    "sets": self._fallback_sets,
+                    "seconds": round(self._fallback_seconds, 6),
+                },
                 "stages": {
                     "x".join(map(str, rung)): recs
                     for (rung, _dev), recs in self._stage_records.items()

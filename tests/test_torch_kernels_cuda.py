@@ -386,6 +386,43 @@ def test_cold_rung_capture_never_stalls_a_warm_verify(dev):
           f"cold-rung warm-up and capture; lock waits {waits}")
 
 
+def test_scheduler_serves_on_card_with_one_poisoned(dev):
+    """The verification scheduler on the card, its compile service warm at
+    (4, 1, 2): four single-signer submissions, one signed by the wrong key,
+    flushed by hand. The fused flush fails, bisection isolates the bad
+    submission on the same warm rung, and each verdict is its own."""
+    from lighthouse_tpu_torch.compile_service import service as csvc
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.verification_service import VerificationScheduler
+
+    good, bad = _gossip_like(701, False), _gossip_like(701, True)
+    subs = [bls.SignatureSet(sig, [bls.PublicKey(p) for p in pks], m)
+            for sig, pks, m in good[:3] + bad[3:]]
+    svc = csvc.CompileService(rungs=[(4, 1, 2)], device=dev)
+    csvc.set_service(svc)
+    svc.start()
+    try:
+        assert svc.wait_idle(timeout=600)
+        kernels.reset_launches()
+        sched = VerificationScheduler(compile_service=svc, deadline_ms=600_000).start()
+        try:
+            futs = [sched.submit([s], "unaggregated") for s in subs]
+            sched.flush()
+            verdicts = [f.result(timeout=600) for f in futs]
+        finally:
+            sched.stop()
+        st, routes = sched.status(), svc.status()["cold_routes"]
+    finally:
+        svc.stop()
+        csvc.clear_service(svc)
+    assert verdicts == [True, True, True, False]
+    assert st["bisections_total"] >= 1 and routes["shed"] == 0
+    assert all(kernels.launches[k] > 0 for k in kernels.launches)
+    print(f"scheduler on the card: routes {routes}, bisections "
+          f"{st['bisections_total']}, plan {st['planner']['last_plan']}, launches "
+          f"{dict(kernels.launches)}, slo {sched.slo_summary()['kinds']['unaggregated']}")
+
+
 # ---------------------------------------------------------------------------
 # The composed engines against the kernels
 # ---------------------------------------------------------------------------
