@@ -81,6 +81,23 @@ plain torch version on the card. Phases, in order; any failure raises:
    poisoned one alone False), the warm pass must shed nothing and launch
    K1-K3, the shed pass must serve a shed flush on the fallback, and the
    fallback is ``cpu-native``. The phase ends when the service is idle;
+12b. mesh (``crypto/device/mesh.py``), with the phase-9 service, phase 5's
+   key table and phase 12's pools, each step a ``MESH_DURATION_S`` pass of
+   ``traffic.gossip_steady`` (seed 1) through the scheduler, ended when
+   the compile service is idle: the mesh this
+   machine discovers (one shard on ``cuda:0``, every sub-batch tagged
+   shard 0, K1-K3 launched, its status and latencies beside phase 12's
+   warm pass); then ``DeviceMesh(devices=[cuda:0, cuda:0])``: a key table
+   over the registry syncs two equal replicas (twice the upload), the
+   service walks its ladder for shard 1 capturing no graph, a gathered
+   block verifies from each replica, and flushes split across shards 0
+   and 1 on two threads; a verifier that raises ``InjectedFault`` in
+   shard 1's scope loses it (the poisoned set the only False, failed probes
+   journaled with growing attempts); cleared, shard 1 is re-admitted with
+   no graph captured and flushes split again (a gathered block batch
+   through ``verify_now``); a ``MESH_HANG_S`` hang on shard 1 under a
+   ``MESH_WATCHDOG_S`` watchdog is reaped within the deadline plus 0.5 s
+   with right verdicts. The phase ends with no mesh attached;
 13. kernel timings where the path runs them: each kernel checked again and
    timed (device ms per launch, launches queued back to back behind a
    device sleep, CUDA events) with its plain version and its bound at 1
@@ -173,6 +190,16 @@ SERVE_SYNC = 16
 # the shed pass's second compile service warms only this rung: the
 # precomputed committee's (phase 8), which phase 9 captures
 SERVE_SHED_RUNG = (1, 1, 1)
+# The mesh phase: each pass replays this much of traffic.gossip_steady
+# (seed 1) through the scheduler; the split passes' planner puts a kind
+# group on two shards from 2 x MESH_DP_MIN_SETS sets; the probe backoff of
+# the two-shard mesh; the watchdog's deadline and the injected hang
+MESH_DURATION_S = 3.0
+MESH_DP_MIN_SETS = 2
+MESH_PROBE_BASE_S = 0.5
+MESH_PROBE_MAX_S = 2.0
+MESH_WATCHDOG_S = 2.0
+MESH_HANG_S = 4.0
 # The MSM phase's point counts: the top MSM rung (a mainnet committee) for
 # G1 with random u64 scalars, and 128 points for the G2 sum.
 MSM_N = 512
@@ -1335,9 +1362,10 @@ def _route_counts(svc) -> dict:
     return {**st["cold_routes"], "fallback_calls": st["fallback"]["calls"]}
 
 
-def serve_pass(label, svc, events, pools, extra=(), bypass=(), **sched_kw):
+def serve_pass(label, svc, events, pools, extra=(), bypass=(), scheduler_cls=None,
+               **sched_kw):
     """Replay ``events`` (a ``traffic`` trace) through a fresh
-    ``VerificationScheduler`` with ``svc`` attached, its default
+    ``VerificationScheduler`` (or ``scheduler_cls``) with ``svc`` attached, its default
     ``verify_fn`` (the port's ``bls.verify_signature_sets``, on the card)
     and ``sched_kw``:
     this thread submits each event at its time ``t``, a set drawn in turn
@@ -1361,7 +1389,7 @@ def serve_pass(label, svc, events, pools, extra=(), bypass=(), **sched_kw):
     items = sorted([*items, *extra], key=lambda it: it[0])
     routes0, stages0 = _route_counts(svc), dict(svc.status()["stages"])
     graphs0 = graphs.status()["programs"]
-    sched = VerificationScheduler(compile_service=svc, **sched_kw).start()
+    sched = (scheduler_cls or VerificationScheduler)(compile_service=svc, **sched_kw).start()
     walls_now, errors = [], []
 
     def blocks():
@@ -1419,6 +1447,7 @@ def serve_pass(label, svc, events, pools, extra=(), bypass=(), **sched_kw):
         "buckets_seen": st["buckets_seen"],
         "routes": routes,
         "bisections": st["bisections_total"],
+        "watchdog_reaped": st["watchdog_reaped_total"],
         "launches": launches,
         "wall_s": wall,
         "submit_s": submitted_s,
@@ -1555,6 +1584,358 @@ def serve_phase(rng, svc, block_batches, dev, planner_off=False) -> dict:
     log(f"serve: the attached service was idle {out['end_wait_idle_s']:.2f} s after "
         "the last pass")
     out["fallback"] = svc.status()["fallback"]
+    out["pools"] = (pools, poisoned)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The device mesh on the card: one discovered shard, then two shards on the
+# one card through loss, recovery and a watchdog reap
+# ---------------------------------------------------------------------------
+
+def _events_since(seq0: int, kinds) -> list:
+    from lighthouse_tpu_torch.utils import flight_recorder
+
+    return [e for e in flight_recorder.events(list(kinds)) if e["seq"] >= seq0]
+
+
+def _journal_seq() -> int:
+    from lighthouse_tpu_torch.utils import flight_recorder
+
+    return flight_recorder.status()["recorded_total"]
+
+
+def _graph_count() -> int:
+    from lighthouse_tpu_torch.crypto.device import graphs
+
+    return graphs.status()["graphs"]
+
+
+def _graph_keys() -> set:
+    from lighthouse_tpu_torch.crypto.device import graphs
+
+    return {f"{prog} {key}" for prog, recs in graphs.status()["programs"].items()
+            for key in recs}
+
+
+def _wait_for(cond, timeout: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"mesh: timed out after {timeout} s waiting for {what}")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def mesh_pass(label, svc, events, pools, **kw) -> dict:
+    """One serve pass (:func:`serve_pass`) on the attached mesh, with the
+    shard-tagged journal of its sub-batches: the shards they dispatched
+    on, their routes, the threads that ran them, and the flushes whose
+    plan split across shards. The pass ends when the service is idle: a
+    rung its flushes asked for may still be capturing when the last
+    verdict lands, and a later step's capture count must not see it."""
+    seq0 = _journal_seq()
+    out = serve_pass(label, svc, events, pools, **kw)
+    keys0 = _graph_keys()
+    t0 = time.perf_counter()
+    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError(f"{label}: the service is not idle after the pass")
+    late = sorted(_graph_keys() - keys0)
+    out["idle_wait_s"], out["graphs_after_pass"] = time.perf_counter() - t0, late
+    log(f"  {label}: service idle {out['idle_wait_s']:.3f} s after the last verdict; "
+        f"graphs the pass's warm-ups captured after it: {len(late)} {late}")
+    tags = _events_since(seq0, ["shard_dispatch"])
+    plans = _events_since(seq0, ["scheduler_plan"])
+    out["shards"] = {}
+    for e in tags:
+        f = e["fields"]
+        rec = out["shards"].setdefault(f["shard"], {"sub_batches": 0, "sets": 0,
+                                                    "routes": {}, "threads": []})
+        rec["sub_batches"] += 1
+        rec["sets"] += f["n_sets"]
+        rec["routes"][f["route"]] = rec["routes"].get(f["route"], 0) + 1
+        if e["thread"] not in rec["threads"]:
+            rec["threads"].append(e["thread"])
+    # the journal keeps a list field as its text
+    out["split_flushes"] = sum(1 for e in plans
+                               if len(json.loads(str(e["fields"]["dp_shards"]))) > 1)
+    out["flush_plans"] = len(plans)
+    if len(tags) != out["sub_batches"]:
+        raise AssertionError(f"{label}: {len(tags)} shard-tagged sub-batches of "
+                             f"{out['sub_batches']}")
+    log(f"  {label}: per shard {json.dumps(out['shards'])}; {out['split_flushes']} of "
+        f"{out['flush_plans']} flushes split across shards")
+    return out
+
+
+def mesh_phase(svc, table, pools, poisoned, serve_warm, backend, gbsets, dev) -> dict:
+    """The device mesh on the card (``crypto/device/mesh.py``), with the
+    phase-9 compile service, phase 5's key table and phase 12's pools.
+
+    1. The mesh this machine discovers (``DeviceMesh()``): one shard on
+       ``cuda:0``; the key table re-synced (one replica) and a short
+       ``gossip_steady`` trace served, every sub-batch tagged shard 0.
+    2. Two shards on the one card: a new key table over phase 5's registry
+       syncs two replicas (twice the upload, the replicas equal); the
+       service walks its ladder again, now for shard 1 (no graph may be
+       captured: shard 0's graphs are on the same device); a gathered
+       block batch verifies from each shard's replica; a trace is served
+       with a planner that splits flushes across both shards.
+    3. Card loss, keyed as the JAX package's chaos tests key it: the
+       scheduler's verifier (and the recovery probe, which runs the same
+       verifier after the canary) raises ``InjectedFault`` in shard 1's
+       dispatch scope while the fault is on, else runs the backend on the
+       card. Shard 1 is lost, a poisoned set in the degraded flushes is
+       the only False, and the probes fail with growing attempts.
+    4. Recovery: the fault cleared, a probe passes, the re-warm captures
+       nothing, the key table re-syncs, shard 1 is re-admitted and flushes
+       split again (with a ``verify_now`` block batch on the primary).
+    5. Watchdog: the same verifier hangs ``MESH_HANG_S`` on shard 1's next
+       dispatch under a ``MESH_WATCHDOG_S`` deadline. Timed from a stamp
+       the flush thread takes before it starts the watched dispatch, the
+       reap comes no earlier than the deadline and within the deadline
+       plus 0.5 s, and the sets fail over with right verdicts.
+
+    Every verdict must be right; the phase ends with no mesh attached and
+    the service's ladder back on one shard."""
+    import threading
+
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import PublicKey, SignatureSet
+    from lighthouse_tpu_torch.crypto.device import key_table
+    from lighthouse_tpu_torch.crypto.device import mesh as mesh_mod
+    from lighthouse_tpu_torch.utils import fault_injection as fi
+    from lighthouse_tpu_torch.verification_service import VerificationScheduler, traffic
+    from lighthouse_tpu_torch.verification_service.planner import FlushPlanner
+
+    events = traffic.gossip_steady(duration_s=MESH_DURATION_S, seed=1, rate_scale=1.0)
+    out = {"trace_events": len(events)}
+    t_phase = time.perf_counter()
+
+    # 1. the discovered mesh: one shard on this machine's one card
+    mesh1 = mesh_mod.DeviceMesh() if dev.type == "cuda" else mesh_mod.DeviceMesh(devices=[dev])
+    if len(mesh1) != 1 or mesh1.device_for(0) != dev:
+        raise AssertionError(f"mesh: discovered {mesh1.devices}, expected [{dev}]")
+    mesh_mod.set_mesh(mesh1)
+    key_table.set_table(table)
+    added = table.sync(reason="recovery")
+    if table.status()["replicas"] != [0] or added:
+        raise AssertionError(f"mesh: the key table re-sync added {added} rows, replicas "
+                             f"{table.status()['replicas']}")
+    log(f"mesh 1: discovered {len(mesh1)} shard on {mesh1.devices}; key table re-synced "
+        f"({added} rows, replicas [0])")
+    one = mesh_pass("mesh 1 (one discovered shard)", svc, events, pools)
+    if set(one["shards"]) != {0}:
+        raise AssertionError(f"mesh 1: sub-batches on shards {sorted(one['shards'])}")
+    missing = [k for k in KERNELS if not one["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"mesh 1: kernels never launched: {missing}")
+    chip = mesh1.status()["chips"][0]
+    if chip["failures"] or (dev.type == "cuda" and not chip["device_memory_bytes"]):
+        raise AssertionError(f"mesh 1: status {chip}")
+    log(f"mesh 1 status: {chip['sets_per_sec']} sets/s over the window, "
+        f"{chip['sets_total']} sets in {chip['dispatches']} dispatches, "
+        f"device_memory_bytes {chip['device_memory_bytes']}, failures {chip['failures']}")
+    for kind, v in one["slo"].items():
+        w = serve_warm["slo"].get(kind, {})
+        log(f"  {kind}: p50 {v['p50_ms']} / p99 {v['p99_ms']} ms on the mesh; phase 12 "
+            f"warm pass p50 {w.get('p50_ms')} / p99 {w.get('p99_ms')} ms")
+    out["one_shard"] = {"pass": one, "status": mesh1.status()}
+    mesh_mod.clear_mesh(mesh1)
+
+    # 2. two shards on the one card
+    mesh2 = mesh_mod.DeviceMesh(devices=[dev, dev], probe_base_s=MESH_PROBE_BASE_S,
+                                probe_max_s=MESH_PROBE_MAX_S)
+    mesh_mod.set_mesh(mesh2)
+    table2 = key_table.DeviceKeyTable(table.cache, device=dev)
+    t0 = time.perf_counter()
+    n = table2.sync(reason="startup")
+    sync_s = time.perf_counter() - t0
+    st1, st2 = table.status(), table2.status()
+    one_bytes = st1["upload_bytes"]["startup"] + st1["upload_bytes"]["delta"]
+    (d0, a0), (d1, a1) = table2.device_arrays(0), table2.device_arrays(1)
+    if (st2["replicas"] != [0, 1] or st2["upload_bytes"]["startup"] != 2 * one_bytes
+            or d0 is d1 or not torch.equal(d0, d1) or not torch.equal(a0, a1)
+            or not torch.equal(d0[:n], table.device_arrays(0)[0][:n])):
+        raise AssertionError(f"mesh 2: key table replicas {st2['replicas']}, upload "
+                             f"{st2['upload_bytes']} (one replica {one_bytes} B)")
+    log(f"mesh 2: key table synced {n} rows onto replicas {st2['replicas']} in "
+        f"{sync_s:.3f} s: upload {st2['upload_bytes']['startup']} B (one replica "
+        f"{one_bytes} B), replicas torch.equal; device bytes {st2['device_bytes']} "
+        f"(phase 5's one replica {st1['device_bytes']}); allocated on the card "
+        f"{torch.cuda.memory_allocated(dev) if dev.type == 'cuda' else None} B")
+    key_table.set_table(table2)
+    g0 = _graph_count()
+    t0 = time.perf_counter()
+    svc.stop()
+    svc.start()  # the ladder over (rung, shard) for both shards
+    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError("mesh 2: the ladder walk did not finish")
+    plan_warm = [r for r in svc.plan if r in svc.warm_rungs_active(device=1)]
+    # the rungs traffic warmed on shard 0, asked for on shard 1 as a flush's
+    # routing would
+    extra = [r for r in svc.warm_rungs_active(device=0)
+             if r not in svc.warm_rungs_active(device=1)]
+    for r in extra:
+        svc.request(*r, device=1)
+    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError("mesh 2: the shard-1 warm-ups did not finish")
+    walk_s = time.perf_counter() - t0
+    walk_graphs = _graph_count() - g0
+    by_shard = svc.warm_rungs_by_shard([0, 1])
+    log(f"mesh 2: the service walked its ladder for shard 1 ({len(plan_warm)} of "
+        f"{len(svc.plan)} plan rungs warm) and {len(extra)} rungs traffic warmed on "
+        f"shard 0, in {walk_s:.2f} s; graphs captured: {walk_graphs} (shard 0's are "
+        f"on the same device); warm rungs per shard "
+        f"{ {k: len(v) for k, v in by_shard.items()} }")
+    if walk_graphs or len(plan_warm) != len(svc.plan):
+        raise AssertionError(f"mesh 2: the walk captured {walk_graphs} graphs, warmed "
+                             f"{plan_warm}")
+    gathered = {}
+    with held_collapse(table2):
+        for shard in (0, 1):
+            with mesh_mod.dispatch_to(shard):
+                t0 = time.perf_counter()
+                ok = backend.verify_signature_sets(gbsets)
+                gathered[shard] = time.perf_counter() - t0
+            lb = backend.last_batch
+            if ok is not True or lb["path"] != "raw_gather" or not lb["warm"]:
+                raise AssertionError(f"mesh 2: gathered block on shard {shard}: {ok}, "
+                                     f"{batch_line(backend)}")
+    log(f"mesh 2: the gathered block batch from each shard's replica: True, walls "
+        f"{ {k: round(v, 4) for k, v in gathered.items()} } s")
+    planner = FlushPlanner(dp_min_sets=MESH_DP_MIN_SETS)
+    split = mesh_pass("mesh 2 (two shards, split flushes)", svc, events, pools,
+                      flush_planner=planner)
+    if not split["split_flushes"] or sorted(split["shards"]) != [0, 1]:
+        raise AssertionError(f"mesh 2: no flush split across shards [0, 1]")
+    threads = {t for rec in split["shards"].values() for t in rec["threads"]}
+    if not {"flush-shard-0", "flush-shard-1"} <= threads:
+        raise AssertionError(f"mesh 2: sub-batches ran on threads {sorted(threads)}")
+    out["two_shards"] = {"key_table_sync_s": sync_s, "upload_bytes": st2["upload_bytes"],
+                         "device_bytes": st2["device_bytes"], "walk_s": walk_s,
+                         "walk_graphs": walk_graphs, "gathered_walls": gathered,
+                         "pass": split}
+
+    # 3. card loss
+    canary = [pools["unaggregated"][0]]
+    chaos = {"lost": False, "hang_s": 0.0, "hung_at": None}
+    chaos_lock = threading.Lock()
+
+    def chaos_verify(sets):
+        # shard 1's dispatches fail while the fault is on, or hang once
+        if mesh_mod.current_shard() == 1:
+            if chaos["lost"]:
+                raise fi.InjectedFault("staged_dispatch: card lost on shard 1")
+            with chaos_lock:
+                hang_s, chaos["hang_s"] = chaos["hang_s"], 0.0
+                if hang_s:
+                    chaos["hung_at"] = time.time()
+            if hang_s:
+                time.sleep(hang_s)
+        return bls.verify_signature_sets(sets)
+
+    def probe(shard):
+        # the canary on the card, then one set through the same verifier
+        return mesh2._default_canary(shard) and chaos_verify(canary) is True
+
+    mesh2.start_recovery(probe_fn=probe)
+    seq_loss = _journal_seq()
+    chaos["lost"] = True
+    half = MESH_DURATION_S / 2
+    lost = mesh_pass("mesh 3 (shard 1 lost)", svc, events, pools, flush_planner=planner,
+                     extra=[(half, "unaggregated", poisoned, False)], verify_fn=chaos_verify)
+    lost_ev = _events_since(seq_loss, ["shard_lost"])
+    if [e["fields"]["shard"] for e in lost_ev] != [1] or mesh2.healthy_shards() != [0]:
+        raise AssertionError(f"mesh 3: shard_lost {lost_ev}, healthy "
+                             f"{mesh2.healthy_shards()}")
+    _wait_for(lambda: mesh2.status()["chips"][1]["probe_attempts"] >= 1, 30,
+              "a failed probe")
+    attempts = [e["fields"]["attempt"] for e in _events_since(seq_loss, ["shard_probation"])]
+    if attempts[:2] != [0, 1] or attempts != sorted(attempts):
+        raise AssertionError(f"mesh 3: probation attempts {attempts}")
+    log(f"mesh 3: shard 1 lost ({lost_ev[0]['fields']['error']}); the poisoned set the "
+        f"only False; probation attempts {attempts}, each failed probe journaled")
+    out["loss"] = {"pass": lost, "probation_attempts": attempts,
+                   "status": mesh2.status()}
+
+    # 4. recovery
+    keys0, seq_rec = _graph_keys(), _journal_seq()
+    chaos["lost"] = False
+    down_s = _wait_for(lambda: mesh2.healthy_shards() == [0, 1],
+                       MESH_PROBE_MAX_S * 2 + 30, "re-admission")
+    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError("mesh 4: the re-warm did not finish")
+    rec = _events_since(seq_rec, ["shard_recovered"])
+    rec_new = sorted(_graph_keys() - keys0)
+    rec_graphs = len(rec_new)
+    if [e["fields"]["shard"] for e in rec] != [1] or rec_graphs:
+        raise AssertionError(f"mesh 4: shard_recovered {rec}, graphs captured {rec_new}")
+    log(f"mesh 4: shard 1 re-admitted {down_s:.2f} s after the fault cleared "
+        f"({json.dumps(rec[0]['fields'])}); graphs captured by the re-warm: {rec_graphs}; "
+        f"key table re-synced (upload {table2.status()['upload_bytes']})")
+    blocks = [SignatureSet(sig, [PublicKey(p) for p in pks], m) for sig, pks, m in gbsets]
+    with held_collapse(table2):
+        resplit = mesh_pass("mesh 4 (shard 1 re-admitted)", svc, events, pools,
+                            flush_planner=planner, bypass=[(half, blocks)])
+    if not resplit["split_flushes"] or sorted(resplit["shards"]) != [0, 1]:
+        raise AssertionError("mesh 4: flushes did not split across shards [0, 1] again")
+    out["recovery"] = {"pass": resplit, "readmitted_after_s": down_s,
+                       "recovered": rec[0]["fields"], "graphs_captured": rec_graphs}
+
+    # 5. the watchdog reaps a hang on shard 1
+    starts = []
+
+    class StampedScheduler(VerificationScheduler):
+        # stamps each watched dispatch on the flush thread, before the
+        # watchdog starts its worker and its deadline
+        def _dispatch_on(self, verify, sets, shard, deadline_s):
+            starts.append((time.time(), shard))
+            return super()._dispatch_on(verify, sets, shard, deadline_s)
+
+    seq_wd = _journal_seq()
+    chaos["hang_s"] = MESH_HANG_S
+    try:
+        wd = mesh_pass("mesh 5 (watchdog)", svc, events, pools, flush_planner=planner,
+                       watchdog_s=MESH_WATCHDOG_S, verify_fn=chaos_verify,
+                       scheduler_cls=StampedScheduler)
+    finally:
+        chaos["hang_s"] = 0.0
+    reaps = _events_since(seq_wd, ["watchdog_reaped"])
+    hung_at = chaos["hung_at"]
+    if not reaps or hung_at is None or reaps[0]["fields"]["shard"] != 1:
+        raise AssertionError(f"mesh 5: reaps {reaps}, hang began at {hung_at}")
+    began = [t for t, shard in starts if shard == 1 and t <= hung_at][-1]
+    reap_s = reaps[0]["t"] - began
+    if not MESH_WATCHDOG_S - 0.02 <= reap_s <= MESH_WATCHDOG_S + 0.5:
+        raise AssertionError(f"mesh 5: reaped {reap_s:.3f} s after the dispatch began "
+                             f"(deadline {MESH_WATCHDOG_S} s)")
+    reaped_total = wd["watchdog_reaped"]
+    if reaped_total < 1:
+        raise AssertionError("mesh 5: the scheduler counted no reap")
+    log(f"mesh 5: the hang on shard 1 reaped {reap_s:.3f} s after its dispatch began "
+        f"(deadline {MESH_WATCHDOG_S} s, hang {MESH_HANG_S} s); {len(reaps)} reaped; "
+        f"every verdict right")
+    # the reaped dispatch runs on after its hang: wait for it and for the
+    # recovery of shard 1 before the timed phases
+    for th in threading.enumerate():
+        if th.name.startswith("dispatch-wd-"):
+            th.join(timeout=MESH_HANG_S + 60)
+    _wait_for(lambda: mesh2.healthy_shards() == [0, 1], MESH_PROBE_MAX_S * 2 + 30,
+              "shard 1 back after the reap")
+    out["watchdog"] = {"pass": wd, "reap_s": reap_s, "reaps": len(reaps),
+                       "reaped_total": reaped_total}
+    out["final_status"] = mesh2.status()
+    mesh2.stop_recovery()
+    mesh_mod.clear_mesh(mesh2)
+    key_table.clear_table(table2)
+    del table2, d0, d1, a0, a1
+    svc.stop()
+    svc.start()  # the ladder back on one shard, as with no mesh
+    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError("mesh: the service is not idle after the phase")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {out['wall_s']:.1f} s; {card_line()}")
     return out
 
 
@@ -1803,6 +2184,18 @@ def main() -> int:
     for p in ("cold", "warm", "warm_single", "shed"):
         if p in warm["serve"]:
             hists[f"serve {p}"] = warm["serve"][p].pop("lane_hist")
+    log(card)
+
+    log("phase 12b mesh: one discovered shard, then two shards on the one card through "
+        "a split, a loss, a recovery and a watchdog reap")
+    pools, serve_poisoned = warm["serve"].pop("pools")
+    mesh = mesh_phase(warm["service"], table, pools, serve_poisoned, warm["serve"]["warm"],
+                      backend, gbsets, dev)
+    for label, part in (("one_shard", "mesh one shard"), ("two_shards", "mesh two shards")):
+        hists[part] = mesh[label]["pass"].pop("lane_hist")
+    for label in ("loss", "recovery", "watchdog"):
+        mesh[label]["pass"].pop("lane_hist")
+    print(json.dumps({"mesh": mesh}, default=str), flush=True)
     log(card)
 
     log("phase 13 every kernel checked against its plain version and timed at "

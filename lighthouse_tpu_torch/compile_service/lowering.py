@@ -7,6 +7,12 @@ compile service's warm-up and the tests. Every warm-up dispatches through
 ``bls._run_stage``, so the stage graphs it captures are the ones traffic
 replays and a warmed rung is not fresh for the first real batch.
 
+A ``shard`` (a mesh shard index) scopes a warm-up to that shard
+(:func:`_shard_scope`): its dummy arguments land on the shard's device
+and the dispatch runs in the shard's scope, so the graphs are captured
+on that device and the seen-shape accounting is the shard's. Shards that
+share a card share its graphs: a second shard's warm-up replays them.
+
 The JAX module's ``hlo_instruction_count``, ``timed_lower_compile`` and
 ``staged_instruction_counts`` measure XLA programs. Their counterpart
 here is each captured graph's node count, in ``graphs.status()``.
@@ -14,10 +20,13 @@ here is each captured graph's node count, in ``graphs.status()``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..crypto.device import bls as dbls
 from ..crypto.device import fp
+from ..crypto.device import mesh as mesh_mod
 
 STAGES = ("stage1", "stage2", "stage3")
 
@@ -75,8 +84,18 @@ def staged_captured() -> dict:
     return {"stage1": dbls._stage1, "stage2": dbls._stage2, "stage3": dbls._stage3}
 
 
-def warm_staged(B: int, K: int, M: int, device="cuda") -> dict:
-    """Capture the three stage graphs at rung (B, K, M) on ``device`` by
+def _shard_scope(shard):
+    """The dispatch scope a warm-up runs under: ``mesh.dispatch_to`` for a
+    mesh shard (the thread-local shard and, for a CUDA shard, its
+    device), a no-op without a mesh or a shard."""
+    if shard is None or mesh_mod.get_active_mesh() is None:
+        return contextlib.nullcontext()
+    return mesh_mod.dispatch_to(int(shard))
+
+
+def warm_staged(B: int, K: int, M: int, device="cuda", shard=None) -> dict:
+    """Capture the three stage graphs at rung (B, K, M) on ``device`` (on
+    ``shard``'s device, in its scope, when a mesh shard is given) by
     dispatching each captured program on zero arguments through
     ``bls._run_stage``. On the CPU nothing is captured: the stages run
     once eagerly. No lock is held across the rung: each stage's capture
@@ -84,37 +103,47 @@ def warm_staged(B: int, K: int, M: int, device="cuda") -> dict:
     (``graphs.CapturedProgram``), and other threads replay warm graphs
     meanwhile. Returns ``{stage: {seconds, fresh}}``."""
     out = {}
-    args = staged_dummy_args(B, K, M, device)
-    progs = staged_captured()
-    for stage in STAGES:
-        try:
-            _, elapsed, fresh = dbls._run_stage(stage, progs[stage], *args[stage])
-        except Exception as e:
-            raise StageWarmupError(stage, out, e)
-        out[stage] = {"seconds": elapsed, "fresh": fresh}
+    with _shard_scope(shard):
+        args = staged_dummy_args(B, K, M, mesh_mod.device_of(shard, device))
+        progs = staged_captured()
+        for stage in STAGES:
+            try:
+                _, elapsed, fresh = dbls._run_stage(stage, progs[stage], *args[stage])
+            except Exception as e:
+                raise StageWarmupError(stage, out, e)
+            out[stage] = {"seconds": elapsed, "fresh": fresh}
     return out
 
 
-def warm_gather(B: int, K: int, table) -> dict:
+def warm_gather(B: int, K: int, table, shard=None) -> dict:
     """Run the key table's gather once at rung (B, K) against ``table``'s
-    current tensors, through ``bls._run_stage`` under the stage label
-    "gather". The gather stays eager (``bls.verify_batch_raw_staged_gather``
-    says why), so this captures nothing: it records the shape as seen."""
-    dev, agg = table.device_arrays()
-    if dev is None:
-        raise StageWarmupError("gather", {}, RuntimeError("key table has no device rows"))
-    idx = torch.zeros((B, K), dtype=torch.int32, device=dev.device)
-    try:
-        _, elapsed, fresh = dbls._run_stage("gather", dbls._gather_fn, dev, agg, idx)
-    except Exception as e:
-        raise StageWarmupError("gather", {}, e)
+    current tensors (``shard``'s replica when a mesh shard is given),
+    through ``bls._run_stage`` under the stage label "gather". The gather
+    stays eager (``bls.verify_batch_raw_staged_gather`` says why), so this
+    captures nothing: it records the shape as seen."""
+    with _shard_scope(shard):
+        dev, agg = table.device_arrays()
+        if dev is None:
+            raise StageWarmupError("gather", {},
+                                   RuntimeError("key table has no device rows"))
+        idx = torch.zeros((B, K), dtype=torch.int32, device=dev.device)
+        try:
+            _, elapsed, fresh = dbls._run_stage("gather", dbls._gather_fn, dev, agg, idx)
+        except Exception as e:
+            raise StageWarmupError("gather", {}, e)
     return {"seconds": elapsed, "fresh": fresh}
 
 
-def warm_msm(n: int, device="cuda") -> dict:
+def warm_msm(n: int, device="cuda", shard=None) -> dict:
     """Capture the G1 MSM and the G2 sum graphs at point-count rung ``n``
+    (on ``shard``'s device, in its scope, when a mesh shard is given)
     through ``bls._run_stage`` under the shared stage label "msm" (their
     argument shapes differ, so each has its own graph)."""
+    with _shard_scope(shard):
+        return _warm_msm(n, mesh_mod.device_of(shard, device))
+
+
+def _warm_msm(n: int, device) -> dict:
     seconds, fresh = 0.0, False
     g1_args = (
         torch.zeros((n, 2, fp.NL), dtype=torch.int32, device=device),     # pt_xy

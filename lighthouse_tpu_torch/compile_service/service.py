@@ -26,12 +26,16 @@ module keeps that off the hot path:
   worker captures the rung. A cold rung never stalls a flush. The JAX
   service falls back further, to its pure-Python pairing, when the C
   build fails; the port has no host pairing, so a failed build raises.
+* **the mesh ladder**: with a device mesh attached at :meth:`start`
+  (``crypto/device/mesh.py``), the work items are (rung, shard) over
+  every shard, headline rungs first; the registry, routing and warmth
+  are per shard, each shard's rungs warm in its dispatch scope, and a
+  lost shard's rungs are skipped (a probing shard's are live work).
 
 Left out, and why (``ROADMAP.md``): the persistent compile cache and
 its manifest (``cache.py``; a CUDA graph cannot be written to disk, and
-the kernels' nvcc build already persists under ``_build/``); mesh
-devices other than 0; the metrics and journal hooks other than the
-fallback's wall histogram.
+the kernels' nvcc build already persists under ``_build/``); the metrics
+and journal hooks other than the fallback's wall histogram.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ import time
 from collections import deque
 from typing import Callable, Iterable, Optional, Tuple
 
-from ..utils import metrics, tracing
+from ..crypto.device import mesh as _mesh
+from ..utils import fault_injection, metrics, tracing
 from ..verification_service import planner as _planner
 from ..verification_service.planner import Rung, round_up_bucket
 
@@ -154,9 +159,9 @@ def _geometry(sets) -> Tuple[int, int, int]:
 
 class WarmShapeRegistry:
     """Thread-safe set of (B, K, M, impl, device) rungs whose stage
-    graphs are captured; ``device`` is the mesh index (always 0 until the
-    mesh is ported). :meth:`invalidate` bumps an epoch, so a warm-up that
-    started before it cannot mark its rung warm afterwards."""
+    graphs are captured; ``device`` is the mesh shard index (0 without a
+    mesh). :meth:`invalidate` bumps an epoch, so a warm-up that started
+    before it cannot mark its rung warm afterwards."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -248,8 +253,9 @@ class CompileService:
         self._fallback_seconds = 0.0
         self.registry = WarmShapeRegistry()
         self._cv = threading.Condition()
-        # work items are (rung, mesh device); only device 0 is queued
-        # until the mesh is ported
+        # work items are (rung, mesh shard): the mesh ladder. Without a
+        # mesh only shard 0 is queued; start() reads the mesh's shards
+        self._devices: Tuple[int, ...] = (0,)
         self._queue: deque = deque()
         self._queued: set = set()
         self._in_flight = None
@@ -283,8 +289,12 @@ class CompileService:
         with self._cv:
             if self._thread is not None and self._thread.is_alive():
                 return self
+            # the mesh ladder: rung x shard, headline rungs first, so
+            # every shard gets the big warm rung before any gets the next
+            self._devices = self._mesh_devices()
             for rung in self.plan:
-                self._enqueue_locked((rung, 0), front=False)
+                for dev in self._devices:
+                    self._enqueue_locked((rung, dev), front=False)
             self._stopped = False
             self._thread = threading.Thread(
                 target=self._loop, name="compile-service", daemon=True
@@ -318,7 +328,10 @@ class CompileService:
             self._attempts.clear()
             self._msm_warmed.clear()
             for rung in self.plan:
-                self._enqueue_locked((rung, 0), front=False, even_in_flight=True)
+                for dev in self._devices:
+                    self._enqueue_locked(
+                        (rung, dev), front=False, even_in_flight=True
+                    )
             self._cv.notify_all()
 
     def wait_idle(self, timeout: float | None = None) -> bool:
@@ -332,6 +345,21 @@ class CompileService:
                     return False
                 self._cv.wait(left)
         return True
+
+    @staticmethod
+    def _mesh_devices() -> Tuple[int, ...]:
+        """Shard indices the ladder walks: the attached mesh's every
+        shard, (0,) without one."""
+        m = _mesh.get_active_mesh()
+        return tuple(m.all_shards()) if m is not None else (0,)
+
+    def _device_healthy(self, dev: int) -> bool:
+        if dev == 0 and len(self._devices) == 1:
+            return True  # one shard: no mesh to consult
+        m = _mesh.get_active_mesh()
+        # a probing shard's rungs are live work: the recovery worker's
+        # re-warm queues them before the shard is re-admitted
+        return m is None or m.is_healthy(dev) or m.is_probing(dev)
 
     # -- queueing ---------------------------------------------------------
 
@@ -354,7 +382,8 @@ class CompileService:
         self._cv.notify_all()  # the worker, and any wait_idle() caller
 
     def request(self, b: int, k: int, m: int, device: int = 0) -> None:
-        """Ask the worker to warm rung (b, k, m) next."""
+        """Ask the worker to warm rung (b, k, m) on mesh shard ``device``
+        next."""
         with self._cv:
             self._enqueue_locked(
                 ((int(b), int(k), int(m)), int(device)), front=True
@@ -376,7 +405,8 @@ class CompileService:
         device: int = 0,
     ) -> dict:
         """Routing decision for ``n_sets`` sets with up to ``k_req``
-        pubkeys per set and ``m_req`` distinct messages:
+        pubkeys per set and ``m_req`` distinct messages on mesh shard
+        ``device``:
         ``{"action": warm|padded|shed, "rung": (B, K, M) | None, "exact":
         (B, K, M), "fp_impl": impl, "device": device}``. A registry read;
         :meth:`decide_flush` does the accounting, and the verification
@@ -410,9 +440,10 @@ class CompileService:
         geometry: Optional[Tuple[int, int, int]] = None,
         device_index: int = 0,
     ) -> dict:
-        """Route a flush, count a cold bucket and queue its exact rung, so
-        that the next flush of this shape is warm. ``geometry`` is the
-        caller's (n_sets, k_req, m_req) when it has it. ``padded`` is
+        """Route a flush on mesh shard ``device_index``, count a cold
+        bucket and queue its exact rung there, so that the next flush of
+        this shape on that shard is warm. ``geometry`` is the caller's
+        (n_sets, k_req, m_req) when it has it. ``padded`` is
         downgraded to ``shed`` unless this service is the process-global
         one: the pad-up happens inside ``CudaBackend``, which reads only
         the global seam (:func:`set_service`)."""
@@ -434,7 +465,8 @@ class CompileService:
         return decision
 
     def warm_rungs_active(self, device: int = 0) -> list:
-        """Warm (B, K, M) rungs on ``device`` under the port's engine."""
+        """Warm (B, K, M) rungs on mesh shard ``device`` under the port's
+        engine."""
         impl = self._impl()
         return [
             (b, k, m)
@@ -442,11 +474,23 @@ class CompileService:
             if i == impl and d == int(device)
         ]
 
+    def warm_rungs_by_shard(self, shards) -> dict:
+        """``{shard: [(B, K, M), ...]}`` under the active engine: the
+        planner's per-shard warm view (a shard whose set is empty plans
+        cold there, and its sub-batch sheds instead of stalling)."""
+        impl = self._impl()
+        out = {int(s): [] for s in shards}
+        for (b, k, m, i, d) in self.registry.warm_rungs_all():
+            if i == impl and d in out:
+                out[d].append((b, k, m))
+        return out
+
     def pads_for(
         self, n_sets: int, k_req: int, m_req: int, device: int = 0
     ) -> Optional[Rung]:
         """Pad target for the packers: the warm rung a warm or padded
-        route lands on, or None (the packers then round up themselves)."""
+        route lands on for mesh shard ``device``, or None (the packers
+        then round up themselves)."""
         return self.route(n_sets, k_req, m_req, device=int(device))["rung"]
 
     # -- fallback ---------------------------------------------------------
@@ -629,15 +673,20 @@ class CompileService:
         impl = self._impl()
         if self.registry.is_warm(rung, impl, device=dev):
             return  # warmed by traffic while queued
+        if not self._device_healthy(dev):
+            return  # a lost shard's rungs are dead weight, not work
         epoch = self.registry.epoch
         b, k, m = rung
         try:
+            # chaos seam: an armed `compile` fault point raises here and
+            # exercises the retry layer as a failed capture would
+            fault_injection.fire("compile")
             if self._compile_rung_fn is not None:
                 stages = self._compile_rung_fn(b, k, m)
             else:
                 from . import lowering
 
-                stages = lowering.warm_staged(b, k, m, device=self.device)
+                stages = lowering.warm_staged(b, k, m, device=self.device, shard=dev)
         except Exception as e:  # a failed rung must not kill the worker
             with self._cv:
                 self._failed_total += 1
@@ -664,7 +713,8 @@ class CompileService:
 
             tbl = _kt.get_active_table()
             if tbl is not None:
-                lowering.warm_gather(b, k, tbl)
+                # against this shard's own replica
+                lowering.warm_gather(b, k, tbl, shard=dev)
         except Exception as e:
             _log.warning("gather warm-up at B=%s K=%s failed: %r", b, k, e)
         if not msm_warm_enabled():
@@ -674,7 +724,7 @@ class CompileService:
             if mkey in self._msm_warmed or self._stopped:
                 continue
             try:
-                lowering.warm_msm(n, device=self.device)
+                lowering.warm_msm(n, device=self.device, shard=dev)
                 self._msm_warmed.add(mkey)
             except Exception as e:
                 _log.warning("MSM warm-up at N=%s failed: %r", n, e)
@@ -690,8 +740,18 @@ class CompileService:
         from ..crypto.device import graphs
 
         with self._cv:
-            queue = [list(r) for r, _dev in self._queue]
-            in_flight = None if self._in_flight is None else list(self._in_flight[0])
+            multi = len(self._devices) > 1
+
+            def item(rung, dev):
+                # one shard keeps the [B, K, M] rendering; a mesh walk
+                # appends the shard a queued warm-up is for
+                return [*rung, dev] if multi else list(rung)
+
+            def label(rung, dev):
+                return "x".join(map(str, rung)) + (f"@dev{dev}" if multi else "")
+
+            queue = [item(r, dev) for r, dev in self._queue]
+            in_flight = None if self._in_flight is None else item(*self._in_flight)
             now = time.monotonic()
             doc = {
                 "running": self.active(),
@@ -724,10 +784,15 @@ class CompileService:
                     "seconds": round(self._fallback_seconds, 6),
                 },
                 "stages": {
-                    "x".join(map(str, rung)): recs
-                    for (rung, _dev), recs in self._stage_records.items()
+                    label(rung, dev): recs
+                    for (rung, dev), recs in self._stage_records.items()
                 },
             }
+            if multi:
+                doc["mesh_devices"] = list(self._devices)
+                doc["warm_rungs_by_device"] = [
+                    list(r) for r in self.registry.warm_rungs_all()
+                ]
         doc["rung_costs"] = self.measured_rung_costs()
         doc["graphs"] = graphs.status()
         return doc

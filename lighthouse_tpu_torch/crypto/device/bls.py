@@ -68,12 +68,14 @@ import numpy as np
 import torch
 
 from ...compile_service import service as _csvc
+from ...utils import fault_injection
 from ...verification_service.planner import round_up_bucket
 from ..bls import BlsError, Signature, parse_compressed_g2_x
 from ..cpu.curve import g2_generator
 from ..cpu.hash_to_curve import hash_to_g2
 from ..params import DST, G1_X, G1_Y, P
 from . import curve, fp, fp2, graphs, htc, key_table, pairing
+from . import mesh as _mesh
 from . import msm as msm_mod
 from .pairing import X_ABS
 
@@ -364,11 +366,14 @@ def _run_stage(stage: str, fn, *args):
     sync, which would wait on another thread's capture), its wall added
     to :data:`stage_seconds`. No lock is held here: a captured program
     takes its own (``graphs.py``). "Fresh" is the first sighting of the
-    stage, device, engine triple and argument signature, in place of the
-    recompile counter; it is recorded only after a dispatch that
-    succeeded. Returns ``(out, elapsed_s, fresh)``."""
+    stage, device, engine triple, mesh shard and argument signature, in
+    place of the recompile counter; it is recorded only after a dispatch
+    that succeeded. The ``staged_dispatch`` fault point fires first,
+    inside the caller's shard scope, where a real card failure would
+    surface. Returns ``(out, elapsed_s, fresh)``."""
+    fault_injection.fire("staged_dispatch")
     dev = args[0].device
-    key = (stage, str(dev), graphs.engines(),
+    key = (stage, str(dev), graphs.engines(), _mesh.current_shard() or 0,
            tuple((tuple(a.shape), str(a.dtype)) for a in args))
     t0 = time.perf_counter()
     out = fn(*args)
@@ -584,6 +589,7 @@ def pack_signature_sets_raw(
         pk_mask[i, : len(pks)] = True
     sig_x, sig_larger, rand, set_mask = _pack_compressed(sets, B, rand_words)
     msg_u, msg_idx = _pack_message_planes(sets, B, pad_m)
+    fault_injection.fire("device_put")
     return _to_device(
         (pk_xy, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand, set_mask), device)
 
@@ -614,6 +620,7 @@ def pack_signature_sets_indexed(
         pk_mask[i, : len(ix)] = True
     sig_x, sig_larger, rand, set_mask = _pack_compressed(sets, B, rand_words)
     msg_u, msg_idx = _pack_message_planes(sets, B, pad_m)
+    fault_injection.fire("device_put")
     return _to_device(
         (pk_idx, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand, set_mask), device)
 
@@ -667,7 +674,13 @@ class CudaBackend:
         (:func:`~.key_table.set_table`) and holds every pubkey of the
         batch, else through the raw limb planes. Bare points (oracle
         callers) take the hashed path; any Signature object in such a
-        batch is decompressed on the host."""
+        batch is decompressed on the host.
+
+        With a mesh attached (``mesh.set_mesh``) and this thread in a
+        shard's scope (``mesh.dispatch_to``), the batch is packed and
+        dispatched on that shard's device, gathers from that shard's key
+        table replica, and routes and marks warmth in that shard's
+        registry; otherwise it runs on ``self.device`` (shard 0)."""
         sets = list(sets)
         if not sets:
             return False
@@ -681,15 +694,21 @@ class CudaBackend:
         # mode, so this thread's inserts, copies, replays and syncs may run
         # beside another thread's capture (graphs.py)
         t0 = time.perf_counter()
+        scoped = _mesh.current_shard()
+        shard = scoped or 0
+        device = _mesh.device_of(scoped, self.device)
         resolved = None
         n_collapsed = 0
         path = "raw_staged" if raw_mode else "hashed"
         table = _active_key_table()
         if raw_mode and table is not None:
-            # before resolving: a batch that cannot gather inserts and counts nothing
-            if _device_of(table.device) != _device_of(self.device):
+            # before resolving: a batch that cannot gather inserts and
+            # counts nothing. The replica checked is the one this shard
+            # gathers from
+            replica, _agg = table.device_arrays(scoped)
+            if replica is not None and _device_of(replica.device) != _device_of(device):
                 raise key_table.KeyTableError(
-                    f"key table lies on {table.device}, the backend on {self.device}"
+                    f"key table replica lies on {replica.device}, the batch on {device}"
                 )
             res = table.resolve_sets(sets)
             if res is not None:
@@ -708,12 +727,12 @@ class CudaBackend:
             else:
                 k_req = max(len(pks) for _, pks, _ in sets)
             m_req = len({bytes(m) for _, _, m in sets})
-            rung = svc.pads_for(len(sets), k_req, m_req)
+            rung = svc.pads_for(len(sets), k_req, m_req, device=shard)
             if rung is not None:
                 pad_b, pad_k, pad_m = rung
         t1 = time.perf_counter()
         kw = dict(pad_b=pad_b, pad_k=pad_k, rand_words=self.rand_words,
-                  device=self.device)
+                  device=device)
         if resolved is not None:
             table.count_shipped(len(sets) - n_collapsed, n_collapsed)
             args = pack_signature_sets_indexed(sets, resolved, pad_m=pad_m, **kw)
@@ -751,7 +770,7 @@ class CudaBackend:
         if svc is not None:
             # organic warmth: the rung's graphs exist now, whatever the
             # verdict; the cost feed is the pack plus the dispatch
-            svc.note_rung_verified(*rung, epoch=warm_epoch,
+            svc.note_rung_verified(*rung, epoch=warm_epoch, device=shard,
                                    seconds=time.perf_counter() - t1,
                                    n_sets=len(sets))
         return verdict

@@ -55,9 +55,16 @@ while the compile service's worker captures, and none of its memory
 lands in a graph. No graph reads the table's tensors: the gather stays
 eager (``bls.verify_batch_raw_staged_gather`` says why).
 
-One replica lives on the table's ``device`` (``cuda`` by default). The
-process-global seam (:func:`set_table` / :func:`get_active_table`) lets
-:class:`~.bls.CudaBackend` reach the table without a handle.
+Replicas. Without a mesh one replica (shard 0) lives on the table's
+``device`` (``cuda`` by default). With a mesh attached (``mesh.py``) at
+the first sync, the table keeps one replica per mesh shard, each on its
+shard's device (the table's ``device`` for a placeholder shard), pinned
+for the table's life. Every sync, insert and growth applies to every
+replica, all-or-nothing; upload bytes are counted per replica; and
+:meth:`~DeviceKeyTable.resolve_sets` serves the replica of the calling
+thread's dispatch shard (``mesh.current_shard()``, else the lowest).
+The process-global seam (:func:`set_table` / :func:`get_active_table`)
+lets :class:`~.bls.CudaBackend` reach the table without a handle.
 """
 
 from __future__ import annotations
@@ -73,8 +80,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...utils import slot_clock
+from ...utils import fault_injection, slot_clock
 from . import curve
+from . import mesh as _mesh
 
 # limbs per field element (== fp.NL)
 NL = 32
@@ -166,13 +174,16 @@ class DeviceKeyTable:
         self.upload_chunk_rows = max(1, int(upload_chunk_rows))
         self.agg_min_repeats = max(1, int(agg_min_repeats))
         self._lock = threading.Lock()
-        # TWO tensors: the validator mirror [cap_v, 2, NL] and the small
+        # TWO tensors per replica (dicts shard -> tensor, key 0 without a
+        # mesh): the validator mirror [cap_v, 2, NL] and the small
         # aggregate region [max(1, max_agg), 2, NL]. Separate so an
-        # aggregate insert clones ~1 MB, not the (up to 256 MB) validator
-        # table, and so cached sums survive validator-capacity growth (the
-        # encoded index cap_v + slot is recomputed on every resolve).
-        self._dev: Optional[torch.Tensor] = None
-        self._agg_dev: Optional[torch.Tensor] = None
+        # aggregate insert clones ~1 MB per replica, not the (up to
+        # 256 MB) validator table, and so cached sums survive
+        # validator-capacity growth (the encoded index cap_v + slot is
+        # recomputed on every resolve). Both dicts are replaced wholesale
+        # at a commit, never mutated, so a snapshot stays whole.
+        self._dev: Dict[int, torch.Tensor] = {}
+        self._agg_dev: Dict[int, torch.Tensor] = {}
         self._cap_v = 0                     # validator-region capacity
         self._n = 0                         # validator rows resident
         self._point_ids: Dict[int, int] = {}
@@ -210,24 +221,49 @@ class DeviceKeyTable:
         self._resyncs = {"scheduled": 0, "ok": 0, "error": 0}
         self._closed = False
 
+    # -- mesh replicas ------------------------------------------------------
+
+    def _replica_shards(self) -> List[int]:
+        """The shards this table mirrors onto: every mesh shard (lost ones
+        included: a restored card must find its rows), else shard 0.
+        Pinned to the first sync's answer."""
+        if self._dev:
+            return sorted(self._dev)
+        mesh = _mesh.get_active_mesh()
+        if mesh is not None:
+            return mesh.all_shards()
+        return [0]
+
+    def _resolve_shard_locked(self) -> Optional[int]:
+        """The replica the calling thread gathers from: its dispatch shard
+        when set, else the lowest replica; None when that shard has no
+        replica (the caller then packs raw planes)."""
+        shard = _mesh.current_shard()
+        if shard is None:
+            return min(self._dev) if self._dev else None
+        return shard if shard in self._dev else None
+
     # -- sync (startup + delta admission) ---------------------------------
 
     def sync(self, reason: str = "delta") -> int:
-        """Mirror host-cache rows [resident, len(cache)) onto the device.
-        ALL-OR-NOTHING: rows are validated and packed, and the new rows
-        written past the resident count (or into a grown tensor), before
-        any table state commits; a gap or invalid row raises
-        :class:`KeyTableError` and leaves the table as it was. Returns the
-        number of rows added.
+        """Mirror host-cache rows [resident, len(cache)) onto every
+        replica. ALL-OR-NOTHING across the replicas: rows are validated
+        and packed, and the new rows written past the resident count (or
+        into a grown tensor) on every replica, before any table state
+        commits; a gap or invalid row raises :class:`KeyTableError` and
+        leaves the table as it was. Returns the number of rows added.
 
         Packing and the upload run outside the table lock against
         snapshots; the commit re-checks them and redoes the work if a
-        concurrent sync committed first."""
+        concurrent sync committed first. The ``key_table_sync`` fault
+        point fires first, before any state is touched."""
+        fault_injection.fire("key_table_sync")
+        shards = self._replica_shards()
         for _attempt in range(16):
             with self._lock:
                 n_start = self._n
                 cap_start = self._cap_v
-                dev_start = self._dev
+                dev_start = dict(self._dev)
                 pubkeys = list(self.cache.pubkeys)
             n_host = len(pubkeys)
             if n_host < n_start:
@@ -239,31 +275,41 @@ class DeviceKeyTable:
             if n_host == n_start:
                 return 0
             rows, points = self._pack_rows(pubkeys[n_start:n_host], n_start)
-            dev, cap_v, _grew = self._grown_array(
-                dev_start, cap_start, n_start, n_host
-            )
-            self._write_rows(dev, n_start, rows)
+            new_dev: Dict[int, torch.Tensor] = {}
+            cap_v = cap_start
+            for s in shards:
+                dev, cap_v, _grew = self._grown_array(
+                    dev_start.get(s), cap_start, n_start, n_host,
+                    _mesh.device_of(s, self.device),
+                )
+                self._write_rows(dev, n_start, rows)
+                new_dev[s] = dev
             fresh_agg = None
-            if self._agg_dev is None:
+            if not self._agg_dev:
                 # max(1, ...): a zero-row region would make the gather's
                 # index_select degenerate; with max_aggregates=0 no
                 # aggregate index is ever issued
-                fresh_agg = torch.zeros(
-                    (max(1, self.max_aggregates), *G1_ROW_SHAPE),
-                    dtype=torch.int32, device=self.device,
-                )
+                fresh_agg = {
+                    s: torch.zeros(
+                        (max(1, self.max_aggregates), *G1_ROW_SHAPE),
+                        dtype=torch.int32, device=_mesh.device_of(s, self.device),
+                    )
+                    for s in shards
+                }
             with self._lock:
-                if self._n != n_start or self._dev is not dev_start:
+                if self._n != n_start or any(
+                    self._dev.get(s) is not dev_start.get(s) for s in shards
+                ):
                     continue  # a concurrent sync committed first: redo
-                self._dev = dev
-                if self._agg_dev is None:
+                self._dev = new_dev
+                if not self._agg_dev:
                     self._agg_dev = fresh_agg
                 self._cap_v = cap_v
                 for i, p in enumerate(points):
                     self._point_ids[id(p)] = n_start + i
                 self._n = n_host
                 self._uploads[reason] = (
-                    self._uploads.get(reason, 0) + int(rows.nbytes)
+                    self._uploads.get(reason, 0) + int(rows.nbytes) * len(shards)
                 )
             return n_host - n_start
         raise KeyTableError("sync starved by concurrent syncs")
@@ -286,15 +332,17 @@ class DeviceKeyTable:
             raise KeyTableError("infinity row survived packing")
         return np.ascontiguousarray(rows, np.int32), points
 
-    def _grown_array(self, dev_start, cap_start: int, n_start: int, n_host: int):
-        """(tensor sized for n_host, cap_v, grew): the snapshot tensor when
-        its capacity suffices, else the next ladder rung allocated on the
-        table's device with the resident rows copied device-side."""
+    def _grown_array(self, dev_start, cap_start: int, n_start: int, n_host: int,
+                     device: torch.device):
+        """(tensor sized for n_host, cap_v, grew) for one replica: the
+        snapshot tensor when its capacity suffices, else the next ladder
+        rung allocated on the replica's ``device`` with the resident rows
+        copied device-side."""
         cap_v = table_capacity(n_host)
         if dev_start is not None and cap_v <= cap_start:
             return dev_start, cap_start, False
         dev = torch.zeros((cap_v, *G1_ROW_SHAPE), dtype=torch.int32,
-                          device=self.device)
+                          device=device)
         if dev_start is not None and n_start:
             dev[:n_start].copy_(dev_start[:n_start])
         return dev, cap_v, dev_start is not None
@@ -307,16 +355,19 @@ class DeviceKeyTable:
             part = torch.from_numpy(rows[i: i + self.upload_chunk_rows])
             dev[offset + i: offset + i + len(part)].copy_(part)
 
-    def _agg_with_rows(self, writes: List[Tuple[int, np.ndarray]]) -> torch.Tensor:
-        """A NEW aggregate-region tensor: the current one with ``writes``
-        ((slot, row int32[1, 2, NL]) pairs) applied, in one upload. The old
-        tensor stays as it was for any batch that still holds it."""
-        agg = self._agg_dev.clone()
-        slots = torch.tensor([s for s, _ in writes], dtype=torch.int64,
-                             device=self.device)
+    def _agg_with_rows(self, writes: List[Tuple[int, np.ndarray]]) -> Dict[int, torch.Tensor]:
+        """NEW aggregate-region tensors, one per replica: each current one
+        cloned on its device with ``writes`` ((slot, row int32[1, 2, NL])
+        pairs) applied, in one upload per replica. The old tensors stay as
+        they were for any batch that still holds them."""
+        slots = torch.tensor([s for s, _ in writes], dtype=torch.int64)
         rows = torch.from_numpy(np.concatenate([r for _, r in writes]))
-        agg.index_copy_(0, slots, rows.to(self.device))
-        return agg
+        out = {}
+        for s, region in self._agg_dev.items():
+            agg = region.clone()
+            agg.index_copy_(0, slots.to(agg.device), rows.to(agg.device))
+            out[s] = agg
+        return out
 
     # -- re-sync retry ------------------------------------------------------
 
@@ -399,7 +450,14 @@ class DeviceKeyTable:
         The indexed/collapsed accounting is the dispatcher's
         (:meth:`count_shipped`); only the raw fallback is counted here."""
         with self._lock:
-            if self._dev is None:
+            if not self._dev:
+                return None
+            # the replica the calling thread's dispatch shard gathers
+            # from, resolved first: a shard with no replica falls back
+            # raw before any aggregate-cache work
+            shard = self._resolve_shard_locked()
+            if shard is None:
+                self._sets["raw"] += len(sets)
                 return None
             # epoch-tagged retention, applied only HERE, before any slot
             # of this batch is handed out: at an epoch roll, entries two
@@ -499,7 +557,8 @@ class DeviceKeyTable:
                         self._agg_epochs[key] = cur_epoch
                         self._agg_resident += 1
                         self._agg_inserts += 1
-                        self._uploads["aggregate"] += G1_ROW_BYTES
+                        # per replica: the row crossed to every card
+                        self._uploads["aggregate"] += G1_ROW_BYTES * len(self._agg_dev)
                     # slot >= 0 also covers a raced duplicate insert: reuse
                     # that row for every position of this tuple
                     for j in miss_positions.get(key, ()):
@@ -510,7 +569,8 @@ class DeviceKeyTable:
             # snapshots are taken under
             for j, slot in hits.items():
                 resolved[j] = [self._cap_v + slot]
-            return resolved, self._dev, self._agg_dev, len(hits)
+            # dicts are replaced wholesale, so the phase-1 shard is there
+            return resolved, self._dev[shard], self._agg_dev[shard], len(hits)
 
     def covers_sets(self, sets) -> bool:
         """Would :meth:`resolve_sets` succeed for these sets? Accepts
@@ -570,7 +630,7 @@ class DeviceKeyTable:
             return "infinity"
         row = np.ascontiguousarray(rows, np.int32)
         with self._lock:
-            if self._agg_dev is None:
+            if not self._agg_dev:
                 return "unsynced"
             cur_epoch = slot_clock.get_clock().current_epoch()
             tag = (cur_epoch + 1) if epoch is None else int(epoch)
@@ -595,7 +655,7 @@ class DeviceKeyTable:
             self._agg_epochs[key] = tag
             self._agg_resident += 1
             self._agg_precomputed += 1
-            self._uploads["aggregate"] += G1_ROW_BYTES
+            self._uploads["aggregate"] += G1_ROW_BYTES * len(self._agg_dev)
         return "inserted"
 
     def _evict_stale_locked(self, cur_epoch: int) -> int:
@@ -643,12 +703,24 @@ class DeviceKeyTable:
         with self._lock:
             self._sets["raw"] += int(n_sets)
 
-    def device_arrays(self):
-        """(validator tensor, aggregate tensor) snapshot: indices at or
-        above the validator tensor's length address the aggregate region.
-        ``(None, None)`` before the first sync."""
+    def device_arrays(self, shard: Optional[int] = None):
+        """(validator tensor, aggregate tensor) snapshot of one replica:
+        indices at or above the validator tensor's length address the
+        aggregate region. ``shard=None`` resolves the calling thread's
+        dispatch shard (falling back to the lowest replica); ``(None,
+        None)`` before the first sync or when ``shard`` has no replica."""
         with self._lock:
-            return self._dev, self._agg_dev
+            if not self._dev:
+                return None, None
+            if shard is None:
+                s = self._resolve_shard_locked()
+                if s is None:
+                    s = min(self._dev)
+            else:
+                s = int(shard)
+                if s not in self._dev:
+                    return None, None
+            return self._dev[s], self._agg_dev.get(s)
 
     def __len__(self) -> int:
         return self._n
@@ -659,10 +731,11 @@ class DeviceKeyTable:
             sets = dict(self._sets)
             shipped = sets["indexed"] + sets["collapsed"]
             total = shipped + sets["raw"]
-            rows = sum(int(t.shape[0]) for t in (self._dev, self._agg_dev)
-                       if t is not None)
+            rows = sum(int(t.shape[0]) for t in (*self._dev.values(),
+                                                 *self._agg_dev.values()))
             return {
                 "device": str(self.device),
+                "replicas": sorted(self._dev),
                 "validators_resident": self._n,
                 "host_cache_len": len(self.cache.pubkeys),
                 "validator_capacity": self._cap_v,

@@ -57,11 +57,17 @@ EVENT_KINDS = (
     "bulk_resume",            # verification_service/admission.py, excursion end
     "bulk_throttle",          # verification_service/admission.py, bulk paused
     "deadline_miss",          # verification_service/batcher.py, SLO miss
+    "fault_injected",         # utils/fault_injection.py, one per injected fault
     "scheduler_bisection",    # verification_service/batcher.py, per split
     "scheduler_flush",        # verification_service/batcher.py, per batch
     "scheduler_plan",         # verification_service/batcher.py, per flush plan
     "scheduler_shed",         # verification_service/batcher.py, backpressure
+    "shard_dispatch",         # verification_service/batcher.py, dp sub-batch
+    "shard_lost",             # crypto/device/mesh.py, chip dropped from axis
+    "shard_probation",        # crypto/device/mesh.py, probation entry/failed probe
+    "shard_recovered",        # crypto/device/mesh.py, chip re-admitted to axis
     "slo_burn",               # verification_service/slo.py, budget burn alert
+    "watchdog_reaped",        # verification_service/batcher.py, hung dispatch
 )
 _KINDS = frozenset(EVENT_KINDS)
 

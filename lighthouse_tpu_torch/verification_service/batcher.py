@@ -66,14 +66,32 @@ verdict, path ``fallback``) while the service's worker captures the
 rung's stage graphs. Bisection retries do not route: they call the
 sub-batch's verifier directly, as in the JAX package.
 
-Not ported here, each with the ROADMAP item that brings it: the mesh's
-sharded dispatch, its watchdog and failover (the JAX scheduler's
-``_dispatch_on``, ``_sharded_verify``, ``_failover_retry``: item 12;
-the scheduler runs un-sharded, as the JAX one does without an active
-mesh), and the ``pipeline_profiler``, ``slot_ledger`` and
-``transfer_ledger`` hooks (item 14). The mesh's and watchdog's metric
-families (``verification_scheduler_dp_shards``, ``_dp_subbatches_total``,
-``_dp_sets_total``, ``_watchdog_reaped_total``) come with item 12.
+Device mesh: with a mesh attached (``crypto/device/mesh.py``), plans
+gain the dp shard axis over the mesh's healthy shards and each shard's
+own warm rungs. Sub-batches on different shards dispatch concurrently,
+one worker thread each, and each sub-batch's whole resolution tree
+(bisection retries included) runs in its shard's dispatch scope. Losing
+a card degrades instead of erroring: the first raise on a shard triggers
+one re-verify of the same sets on a failover shard. If that succeeds
+the card is the problem: the shard is dropped (``shard_lost``,
+probation) and the failover's verdict stands. If it raises the same way
+the work is the problem: the shard keeps its health and the exception
+propagates as without a mesh. ``verify_now`` dispatches on the primary
+healthy shard and fails over once the same way.
+
+Dispatch watchdog: with a deadline (``watchdog_s``, env
+``LIGHTHOUSE_TPU_SCHED_WATCHDOG_S``; ``watchdog_bypass_s`` and
+``LIGHTHOUSE_TPU_SCHED_WATCHDOG_BYPASS_S`` for ``verify_now``; both 0 =
+off by default, since a cold rung's captures legitimately take seconds)
+each sharded dispatch runs on a monitored daemon thread, which enters
+the shard's dispatch scope itself (CUDA's current device is per
+thread). Past the deadline the dispatch is abandoned (its result is
+discarded), counted in ``verification_scheduler_watchdog_reaped_total``,
+journaled as ``watchdog_reaped``, and raises :class:`WatchdogTimeout`
+into the failover path above.
+
+Not ported here: the ``pipeline_profiler``, ``slot_ledger`` and
+``transfer_ledger`` hooks (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -86,6 +104,7 @@ from concurrent.futures import Future
 from typing import Callable, List, Optional
 
 from ..crypto import bls
+from ..crypto.device import mesh as mesh_mod
 from ..utils import flight_recorder, metrics, tracing
 from .admission import BulkAdmissionController
 from .planner import BUCKET_LADDER, FlushPlanner, round_up_bucket
@@ -94,6 +113,7 @@ from .slo import SloTracker
 __all__ = [
     "BUCKET_LADDER",
     "VerificationScheduler",
+    "WatchdogTimeout",
     "backend_verify",
     "backend_verify_bulk",
     "backend_verify_each",
@@ -221,6 +241,36 @@ _VERDICT_LATENCY = metrics.histogram_vec(
     "latency the SLO layer certifies",
     ("kind", "path"),
 )
+_DP_SHARDS = metrics.gauge(
+    "verification_scheduler_dp_shards",
+    "healthy dp mesh shards the flush planner currently packs onto "
+    "(crypto/device/mesh.py; 0 = no mesh attached — single-device "
+    "dispatch). Losing a card decrements this and the node keeps "
+    "serving on the rest",
+)
+_DP_SUBBATCHES = metrics.counter_vec(
+    "verification_scheduler_dp_subbatches_total",
+    "sharded sub-batches dispatched per dp shard (the shard axis of a "
+    "(dp x rung) flush plan; unsharded single-device dispatches are "
+    "not counted here — see verification_scheduler_plan_subbatches_"
+    "total for the rung axis)",
+    ("shard",),
+)
+_DP_SETS = metrics.counter_vec(
+    "verification_scheduler_dp_sets_total",
+    "signature sets dispatched per dp shard by the flush planner — "
+    "with bls_device_shard_sets_total this splits the aggregate "
+    "sets/s story into scheduler-side and device-side halves",
+    ("shard",),
+)
+_WATCHDOG_REAPED = metrics.counter_vec(
+    "verification_scheduler_watchdog_reaped_total",
+    "sharded dispatches abandoned by the watchdog after exceeding the "
+    "configured deadline (each converts into the card-loss failover "
+    "path: the same sets re-verify on a failover shard and the hung "
+    "card enters probation — see the watchdog_reaped journal kind)",
+    ("shard",),
+)
 _ARRIVALS = metrics.counter_vec(
     "verification_scheduler_arrival_sets_total",
     "signature sets ARRIVING at the scheduler per caller kind and entry "
@@ -271,6 +321,12 @@ _DEADLINE_MISSES = metrics.counter_vec(
 )
 
 
+class WatchdogTimeout(RuntimeError):
+    """A sharded dispatch exceeded the watchdog deadline and was
+    abandoned: handled exactly like a raised dispatch (failover decides
+    whether the card or the work is the problem)."""
+
+
 class _Submission:
     __slots__ = ("kind", "sets", "future", "submitted_at", "qos")
 
@@ -302,6 +358,8 @@ class VerificationScheduler:
         bulk_flush_sets: int | None = None,
         bulk_linger_ms: float | None = None,
         bulk_admission: Optional[BulkAdmissionController] = None,
+        watchdog_s: float | None = None,
+        watchdog_bypass_s: float | None = None,
     ):
         # default: the port's batch verifier, which runs on the card
         self._verify = verify_fn or bls.verify_signature_sets
@@ -341,6 +399,20 @@ class VerificationScheduler:
             if slo_grace is not None
             else _env_float("LIGHTHOUSE_TPU_SCHED_SLO_GRACE", 2.0),
         )
+        # dispatch watchdog deadlines (module docstring): 0 = off, the
+        # default (a cold rung's captures take seconds, so the deadline
+        # is an operator decision; the bypass has its own knob)
+        self.watchdog_s = float(
+            watchdog_s
+            if watchdog_s is not None
+            else _env_float("LIGHTHOUSE_TPU_SCHED_WATCHDOG_S", 0.0)
+        )
+        self.watchdog_bypass_s = float(
+            watchdog_bypass_s
+            if watchdog_bypass_s is not None
+            else _env_float("LIGHTHOUSE_TPU_SCHED_WATCHDOG_BYPASS_S", 0.0)
+        )
+        self._watchdog_reaped = 0
         # bulk QoS class (module docstring): a second bounded
         # queue serviced only when the deadline class is idle, drained
         # in big-rung chunks, governed by the admission controller
@@ -597,13 +669,20 @@ class VerificationScheduler:
         path = "bypass"
         try:
             with tracing.span("scheduler.bypass", kind=kind, n_sets=len(sets)):
+                # the bypass dispatches on the mesh's primary healthy
+                # shard (after a card loss the block path keeps serving
+                # on the survivors), resolved first so the warm check
+                # below consults the shard that will dispatch
+                mesh = mesh_mod.get_active_mesh()
+                primary = mesh.primary_shard() if mesh is not None else None
                 svc = self._compile_service
                 if svc is not None and svc.active():
                     # even the latency-critical bypass must not stall on a
                     # cold rung's graph captures: shed to the service's
                     # counted synchronous fallback (identical verdict)
                     decision = svc.decide_flush(
-                        sets, caller=f"verify_now:{kind}", device_index=0,
+                        sets, caller=f"verify_now:{kind}",
+                        device_index=primary or 0,
                     )
                     if decision["action"] == "shed":
                         # SLO path follows the RESOLUTION, not the entry:
@@ -614,6 +693,23 @@ class VerificationScheduler:
                         # already label it this way)
                         path = "fallback"
                         return svc.fallback_verify(sets)
+                if mesh is not None and primary is not None:
+                    t_mesh = time.monotonic()
+                    try:
+                        out = self._dispatch_on(
+                            self._verify, sets, primary, self.watchdog_bypass_s,
+                        )
+                    except BaseException as e:  # noqa: BLE001 — failover decides
+                        # one retry on a failover shard, the sub-batches'
+                        # contract; a failover that raises the same way
+                        # means the work is the problem and the raise
+                        # reaches the caller
+                        return self._failover_retry(
+                            self._verify, sets, primary, e, mesh,
+                            watchdog_s=self.watchdog_bypass_s,
+                        )
+                    mesh.note_dispatch(primary, len(sets), time.monotonic() - t_mesh)
+                    return out
                 return self._verify(sets)
         finally:
             # the bypass IS this caller's end-to-end latency: no queue,
@@ -782,15 +878,25 @@ class VerificationScheduler:
         # the plan: one legacy-style sub-batch, or kind-homogeneous
         # bin-packed sub-batches when that wins on padded lanes
         # (planner.py). With a compile service attached the planner only
-        # splits onto rungs the warm registry can serve. No mesh: the
-        # plan has no shard axis.
+        # splits onto rungs the warm registry can serve; with a device
+        # mesh attached plans gain the dp shard axis and the warm set is
+        # per shard (a cold shard sheds instead of stalling the flush).
+        mesh = mesh_mod.get_active_mesh()
+        shards = mesh.healthy_shards() if mesh is not None else None
+        _DP_SHARDS.set(len(shards) if shards else 0)
         warm = None
         if svc is not None:
             try:
-                warm = svc.warm_rungs_active()
+                if shards:
+                    # per shard even at width 1: after a card loss the
+                    # surviving shard may not be shard 0, and its own
+                    # warmth must drive the plan
+                    warm = svc.warm_rungs_by_shard(shards)
+                else:
+                    warm = svc.warm_rungs_active()
             except Exception:
                 warm = None
-        plan = self._planner.plan(subs, warm_rungs=warm, qos=qos)
+        plan = self._planner.plan(subs, warm_rungs=warm, shards=shards, qos=qos)
         _PLANS.with_labels(plan.mode).inc()
         _FLUSHES.with_labels(trigger).inc()
         waste = plan.waste()
@@ -810,6 +916,12 @@ class VerificationScheduler:
         bisections_before = self._bisections
         all_ok = True
         dev_live = dev_padded = 0  # lanes of DEVICE-dispatched sub-batches
+        results: List[Optional[dict]] = [None] * len(plan.sub_batches)
+        # the dp axis is the parallelism: sub-batches on different shards
+        # dispatch concurrently (one worker per sub-batch, bounded by the
+        # plan) and the flush thread joins them; a single-shard (or
+        # unsharded) plan keeps the serial dispatch
+        multi_shard = len({sb.shard for sb in plan.sub_batches}) > 1
         with tracing.span(
             "scheduler.flush",
             trigger=trigger,
@@ -819,23 +931,43 @@ class VerificationScheduler:
             n_sets=n_sets,
             mode=plan.mode,
             n_sub_batches=len(plan.sub_batches),
-            dp_shards=0,
+            dp_shards=len(plan.shards_used()),
         ) as sp:
-            for sb in plan.sub_batches:
+            def run_one(idx: int, sb) -> None:
                 try:
-                    rec = self._dispatch_sub_batch(
-                        sb, svc, plan.mode, trigger, qos
+                    results[idx] = self._dispatch_sub_batch(
+                        sb, svc, mesh, plan.mode, trigger, qos
                     )
                 except BaseException as e:  # noqa: BLE001 — futures first
-                    # never strand a future: whatever slipped past the
-                    # dispatch path's own handling is delivered to every
-                    # submission (the caller sees the raise a direct call
-                    # would have surfaced)
+                    # a worker must never strand its futures: whatever
+                    # slipped past the dispatch path's own handling is
+                    # delivered to every submission (the caller sees the
+                    # raise a direct call would have surfaced)
                     for s in sb.subs:
                         self._account(s, "sub_batch")
                         _SUBMISSIONS.with_labels(s.kind, "error").inc()
                         if not s.future.done():
                             s.future.set_exception(e)
+
+            if multi_shard:
+                workers = [
+                    threading.Thread(
+                        target=run_one, args=(i, sb),
+                        name=f"flush-shard-{sb.shard}", daemon=True,
+                    )
+                    for i, sb in enumerate(plan.sub_batches)
+                ]
+                for w in workers:
+                    w.start()
+                for w in workers:
+                    w.join()
+            else:
+                for i, sb in enumerate(plan.sub_batches):
+                    run_one(i, sb)
+            # bookkeeping on the flush thread (the workers only verify;
+            # the self._* counters keep one writer)
+            for sb, rec in zip(plan.sub_batches, results):
+                if rec is None:
                     all_ok = False
                     continue
                 self._fused_batches += 1
@@ -894,12 +1026,16 @@ class VerificationScheduler:
     # -- sub-batch dispatch -------------------------------------------------
 
     def _dispatch_sub_batch(
-        self, sb, svc, plan_mode: str, trigger: str, qos: str = "deadline",
+        self, sb, svc, mesh, plan_mode: str, trigger: str,
+        qos: str = "deadline",
     ) -> dict:
-        """Execute ONE plan element: route it (cold-rung protection per
-        element: a sub-batch that no warm rung covers is served through
-        the compile service's counted synchronous fallback, and bisects
-        there too), dispatch it and resolve its submissions."""
+        """Execute ONE plan element: route it on its shard (cold-rung
+        protection per element: a sub-batch that no warm rung on its
+        shard covers is served through the compile service's counted
+        synchronous fallback, and bisects there too), dispatch it on its
+        dp shard when the plan is sharded, and resolve its submissions.
+        Runs on the flush thread for serial plans and on a per-sub-batch
+        worker for multi-shard plans: everything here is thread-safe."""
         verify = self._verify
         route_action = "direct"
         paid = sb.padded
@@ -909,7 +1045,7 @@ class VerificationScheduler:
                     sb.sets,
                     caller=f"flush:{trigger}",
                     geometry=(sb.n_sets, sb.k_req, sb.m_req),
-                    device_index=0,
+                    device_index=sb.shard or 0,
                 )
                 route_action = decision["action"]
                 if route_action == "shed":
@@ -945,6 +1081,14 @@ class VerificationScheduler:
             path = "sub_batch"
         else:
             path = "fused"
+        sharded = mesh is not None and sb.shard is not None
+        if sharded and route_action != "shed":
+            # the failover wrapper scopes every call of this sub-batch's
+            # resolution tree (bisection retries included) to its shard
+            verify = self._sharded_verify(verify, sb.shard, mesh)
+            _DP_SUBBATCHES.with_labels(str(sb.shard)).inc()
+            _DP_SETS.with_labels(str(sb.shard)).inc(sb.n_sets)
+        t0 = time.monotonic()
         with tracing.span(
             "scheduler.sub_batch",
             kinds=sb.kinds,
@@ -956,7 +1100,116 @@ class VerificationScheduler:
             ok = self._resolve_group(
                 sb.subs, verify, fused=sb.sets, path=path
             )
+        if sharded:
+            flight_recorder.record(
+                "shard_dispatch",
+                shard=sb.shard,
+                kinds=sb.kinds,
+                n_sets=sb.n_sets,
+                rung="x".join(str(v) for v in sb.rung),
+                route=route_action,
+                ok=ok,
+                seconds=round(time.monotonic() - t0, 6),
+            )
         return {"ok": ok, "route": route_action, "paid": paid}
+
+    def _dispatch_on(self, verify, sets, shard, deadline_s: float):
+        """One dispatch scoped to ``shard``, under the watchdog when
+        ``deadline_s`` > 0: the call then runs on a monitored daemon
+        thread that enters the shard's dispatch scope itself (CUDA's
+        current device is per thread), and a dispatch that outlasts the
+        deadline raises :class:`WatchdogTimeout` here; the caller turns it
+        into the card-loss failover instead of wedging the flush thread
+        on a hung device."""
+        if not deadline_s or deadline_s <= 0:
+            with mesh_mod.dispatch_to(shard):
+                return verify(sets)
+        box: dict = {}
+        done = threading.Event()
+
+        def target():
+            try:
+                with mesh_mod.dispatch_to(shard):
+                    box["ok"] = verify(sets)
+            except BaseException as e:  # noqa: BLE001 — relayed below
+                box["err"] = e
+            finally:
+                done.set()
+
+        worker = threading.Thread(
+            target=target, name=f"dispatch-wd-{shard}", daemon=True
+        )
+        worker.start()
+        if not done.wait(deadline_s):
+            with self._lock:
+                self._watchdog_reaped += 1
+            _WATCHDOG_REAPED.with_labels(str(shard)).inc()
+            flight_recorder.record(
+                "watchdog_reaped",
+                shard=shard,
+                deadline_s=deadline_s,
+                n_sets=len(sets),
+            )
+            raise WatchdogTimeout(
+                f"sharded dispatch on shard {shard} exceeded the "
+                f"{deadline_s:g}s watchdog deadline"
+            )
+        if "err" in box:
+            raise box["err"]
+        return box["ok"]
+
+    def _sharded_verify(self, verify, shard: int, mesh):
+        """Wrap ``verify`` so the whole resolution tree of one sharded
+        sub-batch dispatches on ``shard``, and so losing that card
+        degrades instead of erroring: the first raise (or watchdog reap)
+        triggers one failover re-verify of the same sets on another
+        healthy shard (or the caller's own device when none is left);
+        :meth:`_failover_retry` decides whether the card or the work is
+        at fault. Later calls of the tree go straight to the failover
+        shard."""
+        state = {"failed_over": False}
+
+        def run(sets):
+            target = shard
+            if state["failed_over"] or not mesh.is_healthy(shard):
+                target = mesh.failover_shard(shard)
+            if target is None:
+                return verify(sets)  # every card lost: the caller's device
+            t0 = time.monotonic()
+            try:
+                out = self._dispatch_on(verify, sets, target, self.watchdog_s)
+            except BaseException as e:  # noqa: BLE001 — failover decides
+                if target != shard:
+                    raise  # the failover shard itself raised: a real error
+                state["failed_over"] = True
+                return self._failover_retry(verify, sets, shard, e, mesh)
+            mesh.note_dispatch(target, len(sets), time.monotonic() - t0)
+            return out
+
+        return run
+
+    def _failover_retry(self, verify, sets, shard: int, err, mesh,
+                        watchdog_s: float | None = None):
+        """Re-verify ``sets`` on the failover shard after ``shard`` raised
+        ``err``. Success: the card is the problem, the shard is dropped
+        (``note_failure`` journals ``shard_lost``) and the failover's
+        verdict stands. A raise: the work is the problem, the shard keeps
+        its health and the raise propagates."""
+        fb = mesh.failover_shard(shard)
+        wd = self.watchdog_s if watchdog_s is None else watchdog_s
+        t0 = time.monotonic()
+        try:
+            if fb is not None:
+                out = self._dispatch_on(verify, sets, fb, wd)
+            else:
+                out = verify(sets)
+        except BaseException:
+            mesh.note_failure(shard, err, lost=False)
+            raise
+        mesh.note_failure(shard, err, lost=True)
+        if fb is not None:
+            mesh.note_dispatch(fb, len(sets), time.monotonic() - t0)
+        return out
 
     # -- verdict resolution (split-and-retry isolation) -------------------
 
@@ -1007,7 +1260,7 @@ class VerificationScheduler:
     def _bisect(
         self, subs: List[_Submission], verify: Optional[Callable] = None
     ) -> bool:
-        with self._lock:
+        with self._lock:  # dp shard workers may bisect concurrently
             self._bisections += 1
         _BISECTIONS.inc()
         flight_recorder.record(
@@ -1090,6 +1343,7 @@ class VerificationScheduler:
             pending_sets = self._pending_sets
             bulk_subs = len(self._bulk_pending)
             bulk_sets = self._bulk_pending_sets
+        mesh = mesh_mod.get_active_mesh()  # read the seam once
         return {
             "running": self.running(),
             "queue_submissions": pending_subs,
@@ -1116,9 +1370,13 @@ class VerificationScheduler:
             "fused_batches_total": self._fused_batches,
             "bisections_total": self._bisections,
             "shed_total": self._shed,
+            "watchdog_s": self.watchdog_s,
+            "watchdog_bypass_s": self.watchdog_bypass_s,
+            "watchdog_reaped_total": self._watchdog_reaped,
             "last_batch_occupancy": round(self._last_occupancy, 4),
             "buckets_seen": sorted(self._buckets_seen),
             "compile_service_attached": self._compile_service is not None,
+            "dp_shards": len(mesh.healthy_shards()) if mesh is not None else 0,
             "planner": {
                 "enabled": self._planner.enabled,
                 "overhead_lanes": self._planner.overhead_lanes,

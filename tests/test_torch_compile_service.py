@@ -369,9 +369,10 @@ def test_env_rungs_and_msm_ladder_rides_the_first_rungs(monkeypatch):
     assert psvc.CompileService(device="cpu").plan == psvc.DEFAULT_RUNGS
     monkeypatch.delenv("LIGHTHOUSE_TPU_COMPILE_RUNGS")
     calls = []
-    monkeypatch.setattr(lowering, "warm_staged", lambda b, k, m, device: _stages())
+    monkeypatch.setattr(lowering, "warm_staged",
+                        lambda b, k, m, device, shard=None: _stages())
     monkeypatch.setattr(lowering, "warm_msm",
-                        lambda n, device: (calls.append(n), {"seconds": 0.0})[1])
+                        lambda n, device, shard=None: (calls.append(n), {"seconds": 0.0})[1])
     plan = ((2, 1, 1), (4, 1, 1), (8, 1, 1), (16, 1, 1), (32, 1, 1))
     svc = psvc.CompileService(rungs=plan, device="cpu")
     svc._stopped = False

@@ -42,7 +42,8 @@ def test_no_forbidden_import_statements():
             "utils/slot_clock.py", "verification_service/batcher.py",
             "verification_service/slo.py", "verification_service/admission.py",
             "verification_service/traffic.py", "utils/metrics.py", "utils/tracing.py",
-            "utils/flight_recorder.py", "crypto/native.py", "_native/__init__.py"} <= names
+            "utils/flight_recorder.py", "crypto/native.py", "_native/__init__.py",
+            "crypto/device/mesh.py", "utils/fault_injection.py"} <= names
     bad = []
     for path in sources:
         for name in _imports(ast.parse(path.read_text(), str(path))):
@@ -74,7 +75,8 @@ print(json.dumps(added))
                 "crypto.device.msm", "crypto.device.graphs", "compile_service.service",
                 "compile_service.lowering", "verification_service.planner",
                 "utils.slot_clock", "verification_service.batcher",
-                "verification_service.traffic", "crypto.native", "_native"):
+                "verification_service.traffic", "crypto.native", "_native",
+                "crypto.device.mesh", "utils.fault_injection"):
         assert f"lighthouse_tpu_torch.{mod}" in ported
     leaked = [m for m in added if _forbidden(m) or m.startswith("jax")]
     assert not leaked, leaked

@@ -447,3 +447,89 @@ def test_engines_equal_the_kernels_at_path_lanes(dev, fp_engine, fp2_engine):
         for lanes in (1, 96, 960):
             a = torch.from_numpy(_limbs(rng, lanes, 2)).to(dev)
             _canonical_equal(fp2.sq(a), kernels.fp2_sq(a))
+
+
+# ---------------------------------------------------------------------------
+# The device mesh on the card
+# ---------------------------------------------------------------------------
+
+def test_two_shard_mesh_on_one_card_loses_recovers_and_resplits(dev):
+    """A two-shard mesh whose shards both name the card, behind the
+    scheduler with a compile service whose ladder walked both shards
+    (rungs (2, 1, 1) and (4, 1, 1), four signers over one message). Shard
+    1 is lost mid-run the way the JAX package's chaos tests key a fault:
+    the verifier raises ``InjectedFault`` in shard 1's dispatch scope
+    while the fault is on, else runs the backend on the card. Its
+    sub-batch fails over to shard 0 and the poisoned submission alone is
+    False. Cleared, the recovery worker's probe (the canary on the card,
+    then a one-set verify through the same verifier) re-admits shard 1
+    with no new graph captured, and the next flush splits across both
+    shards again."""
+    import threading
+    import time
+
+    from lighthouse_tpu_torch.compile_service import service as csvc
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.device import graphs, mesh
+    from lighthouse_tpu_torch.utils import fault_injection as fi
+    from lighthouse_tpu_torch.verification_service import VerificationScheduler
+    from lighthouse_tpu_torch.verification_service.planner import FlushPlanner
+
+    msg = b"\x73" * 32
+    sks = [bls.SecretKey(811 + i) for i in range(4)]
+    sig = [bls.Signature.deserialize(sk.sign(msg).serialize()) for sk in sks]
+    good = [bls.SignatureSet(s, [sk.public_key()], msg) for s, sk in zip(sig, sks)]
+    bad = bls.SignatureSet(sig[0], [sks[3].public_key()], msg)
+    lost = threading.Event()
+
+    def verify(sets):
+        if lost.is_set() and mesh.current_shard() == 1:
+            raise fi.InjectedFault("staged_dispatch: card lost on shard 1")
+        return bls.verify_signature_sets(sets)
+
+    m2 = mesh.DeviceMesh(devices=[dev, dev], probe_base_s=0.2, probe_max_s=0.5)
+    mesh.set_mesh(m2)
+    svc = csvc.CompileService(rungs=[(2, 1, 1), (4, 1, 1)], device=dev)
+    csvc.set_service(svc)
+    svc.start()
+    sched = None
+    try:
+        assert svc.wait_idle(timeout=600)
+        assert svc.warm_rungs_by_shard([0, 1]) == {0: [(2, 1, 1), (4, 1, 1)],
+                                                   1: [(2, 1, 1), (4, 1, 1)]}
+        m2.start_recovery(probe_fn=lambda s: m2._default_canary(s)
+                          and verify([good[0]]) is True)
+        sched = VerificationScheduler(verify_fn=verify, compile_service=svc,
+                                      deadline_ms=600_000,
+                                      flush_planner=FlushPlanner(dp_min_sets=1)).start()
+
+        def flush(sets):
+            futs = [sched.submit([s], "unaggregated") for s in sets]
+            sched.flush()
+            return ([f.result(timeout=600) for f in futs],
+                    sched.status()["planner"]["last_plan"]["dp_shards"])
+
+        assert flush(good) == ([True] * 4, [0, 1])
+        lost.set()
+        assert flush(good[:3] + [bad])[0] == [True, True, True, False]
+        assert m2.healthy_shards() == [0] and m2.is_probing(1)
+        # the bisection's warm-ups, requested by the flush, capture first
+        assert svc.wait_idle(timeout=600)
+        n_graphs = graphs.status()["graphs"]
+        lost.clear()
+        t0 = time.monotonic()
+        while m2.healthy_shards() != [0, 1]:
+            assert time.monotonic() - t0 < 60, m2.status()
+            time.sleep(0.05)
+        assert svc.wait_idle(timeout=600)
+        assert graphs.status()["graphs"] == n_graphs
+        assert flush(good) == ([True] * 4, [0, 1])
+        st = m2.status()
+        assert st["recoveries_total"] == 1 and st["chips"][1]["device_memory_bytes"]
+    finally:
+        if sched is not None:
+            sched.stop()
+        m2.stop_recovery()
+        mesh.clear_mesh(m2)
+        svc.stop()
+        csvc.clear_service(svc)

@@ -288,27 +288,17 @@ def _registered_families(pkg_root: Path) -> set:
     return names
 
 
-# The mesh's and watchdog's families: their producers (the sharded
-# dispatch, the watchdog) are not ported, and the families come with them.
-MESH_FAMILIES = {
-    "verification_scheduler_dp_shards",
-    "verification_scheduler_dp_subbatches_total",
-    "verification_scheduler_dp_sets_total",
-    "verification_scheduler_watchdog_reaped_total",
-}
-
-
 def test_metric_families_match_jax():
     import lighthouse_tpu
     import lighthouse_tpu_torch
     import lighthouse_tpu_torch.compile_service  # noqa: F401  (the fallback's family)
 
-    jax_all = _registered_families(Path(lighthouse_tpu.__file__).parent)
-    assert MESH_FAMILIES <= jax_all
-    jax_names = jax_all - MESH_FAMILIES
+    jax_names = _registered_families(Path(lighthouse_tpu.__file__).parent)
     torch_names = {n for n in tmetrics.registry_snapshot()
                    if n.startswith("verification_scheduler_")}
-    assert len(jax_all) >= 25 and torch_names == jax_names
+    assert len(jax_names) >= 25 and torch_names == jax_names
+    assert {"verification_scheduler_dp_shards",
+            "verification_scheduler_watchdog_reaped_total"} <= torch_names
     assert {n for n in jmetrics.registry_snapshot()} >= jax_names
     assert "compile_service_fallback_verify_seconds" in tmetrics.registry_snapshot()
     for name in jax_names:
