@@ -49,13 +49,21 @@ plain torch version on the card. Phases, in order; any failure raises:
    graph, their credited launches and lanes equal to the eager run's; a
    stale-input sequence (valid, poisoned, valid, other signers valid and
    poisoned) on one rung; the MSM and G2 sum through their graphs equal to
-   the host fold;
+   the host fold. Each served batch's transfer-ledger H2D bytes per verify
+   must equal ``last_batch["h2d_bytes"]`` (pubkey-plane bytes beside
+   them), each verify journaling one ``bls_stage_verify`` event and one
+   ``transfer_ledger`` row; then ``stage_latency_summary()``'s rows, and
+   the warm gossip, block and gathered block verifies with every
+   telemetry knob on, off, and on but the transfer ledger's (medians side
+   by side; on against off held to max(5%, 5 ms));
 10. concurrent warm: the phase-9 service's worker is asked for two cold
    rungs of ``DEFAULT_RUNGS`` and captures them while this thread serves
    the warm gossip and gathered block batches in turns: each wall (under
    ``WARM_WALL_LIMIT_S``), the lock waits, each capture's span and how far
    the verifies overlapped the captures; the counters must end at the
-   verifies' eager counts plus the worker's warm-ups;
+   verifies' eager counts plus the worker's warm-ups; the pipeline
+   profiler's bubbles of the warm traffic, by cause, must sum to its idle
+   time with ``compile`` the cause beside the captures;
 11. engines: the gossip batch verified under each of ``ENGINE_TRIPLES``
    (the composed Fp2 and line steps over each ``fp.mul`` engine): valid
    (a capture, then a replay) and poisoned, each triple's capture
@@ -80,7 +88,11 @@ plain torch version on the card. Phases, in order; any failure raises:
    pass's lane counts join phase 13's. Every verdict must be right (the
    poisoned one alone False), the warm pass must shed nothing and launch
    K1-K3, the shed pass must serve a shed flush on the fallback, and the
-   fallback is ``cpu-native``. The phase ends when the service is idle;
+   fallback is ``cpu-native``. Each pass (here and in 12b) also prints the
+   pipeline profiler's bubbles per shard by cause, which must sum to the
+   idle time, its flush phases and overlap potential, and must journal
+   one ``pipeline_flush`` event per flush. The phase ends when the service
+   is idle;
 12b. mesh (``crypto/device/mesh.py``), with the phase-9 service, phase 5's
    key table and phase 12's pools, each step a ``MESH_DURATION_S`` pass of
    ``traffic.gossip_steady`` (seed 1) through the scheduler, ended when
@@ -91,13 +103,22 @@ plain torch version on the card. Phases, in order; any failure raises:
    over the registry syncs two equal replicas (twice the upload), the
    service walks its ladder for shard 1 capturing no graph, a gathered
    block verifies from each replica, and flushes split across shards 0
-   and 1 on two threads; a verifier that raises ``InjectedFault`` in
+   and 1 on two threads, each shard with its bubble ratio; a verifier
+   that raises ``InjectedFault`` in
    shard 1's scope loses it (the poisoned set the only False, failed probes
    journaled with growing attempts); cleared, shard 1 is re-admitted with
    no graph captured and flushes split again (a gathered block batch
    through ``verify_now``); a ``MESH_HANG_S`` hang on shard 1 under a
    ``MESH_WATCHDOG_S`` watchdog is reaped within the deadline plus 0.5 s
    with right verdicts. The phase ends with no mesh attached;
+12c. telemetry, with the phase-9 service and phase 12's pools: one more
+   ``TELEMETRY_DURATION_S`` pass of ``traffic.gossip_steady`` (seed 2) with
+   the slot ledger and the capacity estimator reset and its sampler
+   ticking every ``TELEMETRY_SAMPLE_S``: the capacity estimate with its
+   cost source (the bulk valve's headroom must be the estimate's), the
+   transfer ledger's data movement, the slot ledger's chain time,
+   ``stage_latency_summary()`` and ``device_memory_bytes{kind}`` beside
+   ``torch.cuda.memory_reserved()``;
 13. kernel timings where the path runs them: each kernel checked again and
    timed (device ms per launch, launches queued back to back behind a
    device sleep, CUDA events) with its plain version and its bound at 1
@@ -200,6 +221,11 @@ MESH_PROBE_BASE_S = 0.5
 MESH_PROBE_MAX_S = 2.0
 MESH_WATCHDOG_S = 2.0
 MESH_HANG_S = 4.0
+# The telemetry phase: one more pass of traffic.gossip_steady (seed 2) this
+# long, with the capacity sampler ticking at this interval (the node's
+# default is 10 s, longer than the pass)
+TELEMETRY_DURATION_S = 3.0
+TELEMETRY_SAMPLE_S = 0.5
 # The MSM phase's point counts: the top MSM rung (a mainnet committee) for
 # G1 with random u64 scalars, and 128 points for the G2 sum.
 MSM_N = 512
@@ -1161,10 +1187,13 @@ def concurrent_warm_phase(svc, backend, cold_rungs, traffic, dev) -> dict:
 
     if any(g is not None for g in stage_graphs()):
         raise AssertionError(f"concurrent warm: a stage of {cold_rungs} is captured already")
+    from lighthouse_tpu_torch.utils import pipeline_profiler
+
     before = {id(g) for p in list(graphs._PROGRAMS) for g in p._graphs.values()}
     waits0 = graphs.status()["lock_wait_s"]
     torch.cuda.synchronize()
     kernels.reset_launches()
+    pipeline_profiler.reset()  # the warm traffic's gaps beside the captures
     t_start = time.perf_counter()
     for r in cold_rungs:
         svc.request(*r)
@@ -1250,10 +1279,22 @@ def concurrent_warm_phase(svc, backend, cold_rungs, traffic, dev) -> dict:
     if max(walls) >= WARM_WALL_LIMIT_S:
         raise AssertionError(f"concurrent warm: a warm verify took {max(walls):.3f} s "
                              f"(limit {WARM_WALL_LIMIT_S} s)")
+    # the pipeline profiler: the worker's captures are compile activity,
+    # so the warm traffic's gaps beside them attribute to `compile`
+    shards = bubble_reading("concurrent warm")
+    causes = shards.get("0", {}).get("causes", {})
+    beside = {c: v for c, v in causes.items() if c != "pack"}
+    if not beside or max(beside, key=beside.get) != "compile":
+        raise AssertionError(f"concurrent warm: gaps beside the captures by cause {causes}: "
+                             "compile is not the cause")
+    log(f"concurrent warm: the warm traffic's gaps beside the captures: compile "
+        f"{causes['compile']} s of {shards['0']['idle_s']} s idle (pack {causes.get('pack')} "
+        f"s); busy {shards['0']['busy_s']} s counts the traffic only")
     return {"cold_rungs": [list(r) for r in cold_rungs], "span_s": span,
             "capture_busy_s": busy, "verifies": len(verifies), "overlapping": n_over,
             "overlap_s": sum(overlap), "wall_max_s": max(walls),
-            "walls": {k: v for k, v in by_label.items()}, "lock_waits_s": dwaits}
+            "walls": {k: v for k, v in by_label.items()}, "lock_waits_s": dwaits,
+            "bubbles": shards}
 
 
 def engine_phase(backend, sets, dev) -> dict:
@@ -1378,6 +1419,7 @@ def serve_pass(label, svc, events, pools, extra=(), bypass=(), scheduler_cls=Non
     import threading
 
     from lighthouse_tpu_torch.crypto.device import graphs, kernels
+    from lighthouse_tpu_torch.utils import pipeline_profiler
     from lighthouse_tpu_torch.verification_service import VerificationScheduler
 
     drawn = dict.fromkeys(pools, 0)
@@ -1407,6 +1449,8 @@ def serve_pass(label, svc, events, pools, extra=(), bypass=(), scheduler_cls=Non
     # service's worker captures, and invalidates that capture
     torch.cuda.current_stream().synchronize()
     kernels.reset_launches()
+    pipeline_profiler.reset()  # the bubbles and flush phases of this pass
+    pipeline0 = _journal_count("pipeline_flush")
     t0 = time.perf_counter()
     blocker = threading.Thread(target=blocks, name="serve-blocks")
     blocker.start()
@@ -1477,6 +1521,7 @@ def serve_pass(label, svc, events, pools, extra=(), bypass=(), scheduler_cls=Non
     log(f"  rungs the worker warmed during the pass (stage seconds): {json.dumps(warmed)}")
     log(f"  graphs captured during the pass: {len(new_graphs)}, capture s "
         f"{json.dumps(new_graphs)}")
+    out["telemetry"] = pass_telemetry(f"serve {label}", out["flushes"], pipeline0)
     log(f"  {card_line()}")
     return out
 
@@ -1812,6 +1857,12 @@ def mesh_phase(svc, table, pools, poisoned, serve_warm, backend, gbsets, dev) ->
     threads = {t for rec in split["shards"].values() for t in rec["threads"]}
     if not {"flush-shard-0", "flush-shard-1"} <= threads:
         raise AssertionError(f"mesh 2: sub-batches ran on threads {sorted(threads)}")
+    ratios = [c["bubble_ratio"] for c in mesh2.status()["chips"]]
+    if any(r is None for r in ratios):
+        raise AssertionError(f"mesh 2: bubble ratios {ratios}")
+    log(f"mesh 2: bubble ratio per shard {ratios} (the pipeline profiler's, on the host "
+        f"clock: both shards' busy intervals lie on the one card)")
+    split["bubble_ratios"] = ratios
     out["two_shards"] = {"key_table_sync_s": sync_s, "upload_bytes": st2["upload_bytes"],
                          "device_bytes": st2["device_bytes"], "walk_s": walk_s,
                          "walk_graphs": walk_graphs, "gathered_walls": gathered,
@@ -1939,6 +1990,222 @@ def mesh_phase(svc, table, pools, poisoned, serve_warm, backend, gbsets, dev) ->
     return out
 
 
+# ---------------------------------------------------------------------------
+# Telemetry: the port's ledgers, profiler and estimator read on the card
+# ---------------------------------------------------------------------------
+
+def _journal_count(kind: str) -> float:
+    """Journal events of ``kind`` recorded so far (the recorder's counter:
+    exact whatever the ring dropped)."""
+    from lighthouse_tpu_torch.utils import metrics
+
+    return metrics.get("flight_recorder_events_total").with_labels(kind).value
+
+
+def _ledger_h2d() -> float:
+    from lighthouse_tpu_torch.utils import transfer_ledger
+
+    return sum(c.value for c in transfer_ledger._H2D_BYTES.children().values())
+
+
+def _verifies() -> float:
+    """``CudaBackend`` verifies so far, whatever their verdict."""
+    from lighthouse_tpu_torch.crypto.device import bls as dbls
+
+    return sum(c.value for c in dbls._OUTCOMES.children().values())
+
+
+def ledger_checked(label, backend, fn):
+    """Run ``fn`` (verifies of one batch) and hold the telemetry they left
+    against the backend's own account: the transfer ledger's H2D bytes
+    per verify equal ``last_batch["h2d_bytes"]``, and each verify
+    journaled one ``bls_stage_verify`` event and one ``transfer_ledger``
+    row. Returns (``fn``'s result, the reading)."""
+    h0, n0 = _ledger_h2d(), _verifies()
+    sv0, tl0 = _journal_count("bls_stage_verify"), _journal_count("transfer_ledger")
+    got = fn()
+    n = _verifies() - n0
+    lb = backend.last_batch
+    per = (_ledger_h2d() - h0) / n if n else None
+    rows = (_journal_count("bls_stage_verify") - sv0, _journal_count("transfer_ledger") - tl0)
+    if not n or per != lb["h2d_bytes"] or rows != (n, n):
+        raise AssertionError(f"{label}: ledger H2D per verify {per} B against last_batch "
+                             f"{lb['h2d_bytes']} B; {rows} bls_stage_verify / "
+                             f"transfer_ledger rows for {n} verifies")
+    log(f"  {label}: ledger H2D {int(per)} B per verify = last_batch h2d_bytes (pubkey "
+        f"planes {lb['pubkey_bytes']} B); one bls_stage_verify and one transfer_ledger "
+        f"row each of {int(n)} verifies")
+    return got, {"verifies": n, "h2d_bytes": per, "pubkey_bytes": lb["pubkey_bytes"]}
+
+
+def bubble_reading(label: str) -> dict:
+    """The pipeline profiler's shards since its last reset: busy, idle and
+    the bubbles by cause, which must sum to the idle time (to the
+    summary's rounding)."""
+    from lighthouse_tpu_torch.utils import pipeline_profiler
+
+    shards = pipeline_profiler.summary()["shards"]
+    for i, sh in shards.items():
+        if abs(sum(sh["causes"].values()) - sh["idle_s"]) > 1e-5 * (1 + len(sh["causes"])):
+            raise AssertionError(f"{label}: shard {i} bubbles {sh['causes']} do not sum "
+                                 f"to its idle {sh['idle_s']} s")
+        log(f"  {label}: shard {i} busy {sh['busy_s']} s, idle {sh['idle_s']} s "
+            f"(bubble ratio {sh['bubble_ratio']}) in {sh['gaps']} gaps; by cause "
+            f"{json.dumps(sh['causes'])} (sum = idle)")
+    return shards
+
+
+def pass_telemetry(label: str, flushes: int, pipeline0: float) -> dict:
+    """One serve pass as the pipeline profiler saw it (reset at its
+    start): each shard's bubbles by cause, the ``pipeline_flush`` events
+    (one per flush), the flush phases and the overlap-potential ratio."""
+    from lighthouse_tpu_torch.utils import pipeline_profiler
+
+    shards = bubble_reading(label)
+    events = _journal_count("pipeline_flush") - pipeline0
+    if events != flushes:
+        raise AssertionError(f"{label}: {events} pipeline_flush events for {flushes} flushes")
+    summ = pipeline_profiler.summary()
+    ov = summ["overlap_potential"]
+    log(f"  {label}: {int(events)} pipeline_flush events = {flushes} flushes; flush phases "
+        f"s {json.dumps({k: v for k, v in summ['flushes'].items() if k.endswith('_s')})}; "
+        f"saturation {summ['flush_thread_saturation']}; overlap potential "
+        f"{ov['projected_speedup']} (measured {ov['measured_sets_per_sec']} sets/s, "
+        f"projected {ov['projected_sets_per_sec']})")
+    return {"shards": shards, "pipeline_flush_events": events, "flushes": summ["flushes"],
+            "saturation": summ["flush_thread_saturation"],
+            "overlap_speedup": ov["projected_speedup"]}
+
+
+def set_telemetry(mode: str) -> None:
+    """Every telemetry knob ``on`` (tracing included) or ``off``: the
+    transfer ledger, pipeline profiler, slot ledger, capacity sampler,
+    flight recorder and span tracing; ``ledger off``: every knob on but
+    the transfer ledger's. Metric families have no knob."""
+    from lighthouse_tpu_torch.utils import (
+        flight_recorder, pipeline_profiler, slot_ledger, timeseries, tracing,
+        transfer_ledger)
+
+    on = mode != "off"
+    for mod in (pipeline_profiler, slot_ledger, timeseries):
+        mod.configure(enabled=on)
+    transfer_ledger.configure(enabled=mode == "on")
+    flight_recorder.configure(enabled=on)
+    (tracing.enable if on else tracing.disable)()
+
+
+def telemetry_overhead(backend, batches) -> dict:
+    """Each warm batch verified with every telemetry knob on, off, and on
+    but the transfer ledger's, in three rounds of three each: the medians
+    side by side, and the on median's excess over off against max(5%,
+    5 ms). The knobs end at their defaults (tracing off)."""
+    from lighthouse_tpu_torch.utils import tracing
+
+    modes = ("on", "off", "ledger off")
+    walls = {label: {m: [] for m in modes} for label in batches}
+    try:
+        for _round in range(3):
+            for mode in modes:
+                set_telemetry(mode)
+                for label, (sets, want) in batches.items():
+                    for _ in range(3):
+                        torch.cuda.current_stream().synchronize()
+                        t0 = time.perf_counter()
+                        if backend.verify_signature_sets(sets) is not want:
+                            raise AssertionError(f"overhead {label} ({mode}): wrong verdict")
+                        torch.cuda.current_stream().synchronize()
+                        walls[label][mode].append(time.perf_counter() - t0)
+    finally:
+        set_telemetry("on")
+        tracing.disable()
+        tracing.clear()
+    out = {}
+    for label, w in walls.items():
+        on, off, nol = (statistics.median(w[m]) for m in modes)
+        limit = max(0.05 * off, 0.005)
+        out[label] = {"on_s": on, "off_s": off, "ledger_off_s": nol,
+                      "excess_s": on - off, "within": on - off <= limit}
+        log(f"  telemetry overhead, {label}: median {on:.4f} s with every knob on, "
+            f"{off:.4f} s with every knob off, {nol:.4f} s with every knob on but the "
+            f"transfer ledger's (9 verifies each): on {on - off:+.4f} s "
+            f"({(on - off) / off:+.2%}) over off, "
+            f"{'within' if on - off <= limit else 'OVER'} max(5%, 5 ms)")
+    return out
+
+
+def print_stage_summary(label: str) -> dict:
+    """``bls.stage_latency_summary()``: the stage, verify, pack-phase and
+    bubble rows."""
+    from lighthouse_tpu_torch.crypto.device import bls as dbls
+
+    rows = dbls.stage_latency_summary()
+    log(f"{label}: stage_latency_summary() rows")
+    for key, row in rows.items():
+        log(f"  {key}: {json.dumps(row)}")
+    return rows
+
+
+def telemetry_phase(svc, pools, dev) -> dict:
+    """The telemetry readings of one serve pass, with the phase-9 compile
+    service and phase 12's pools: ``traffic.gossip_steady`` (seed 2,
+    ``TELEMETRY_DURATION_S``) with every ledger reset first and the
+    capacity sampler ticking every ``TELEMETRY_SAMPLE_S``. Prints the
+    stage summary, the transfer ledger's data movement, the slot
+    ledger's chain time, the capacity estimate with its cost source (and
+    the bulk valve's headroom, which must be that estimate's), and
+    ``device_memory_bytes{kind}`` beside the allocator's reserved bytes."""
+    from lighthouse_tpu_torch.utils import (
+        pipeline_profiler, slot_ledger, timeseries, transfer_ledger)
+    from lighthouse_tpu_torch.verification_service import admission, traffic
+
+    events = traffic.gossip_steady(duration_s=TELEMETRY_DURATION_S, seed=2, rate_scale=1.0)
+    slot_ledger.reset()
+    timeseries.reset()
+    timeseries.start_sampler(interval_s=TELEMETRY_SAMPLE_S)
+    try:
+        out = {"pass": serve_pass("telemetry pass", svc, events, pools)}
+    finally:
+        timeseries.stop_sampler()
+    est = timeseries.last_estimate()
+    headroom = admission._live_headroom()
+    cap = timeseries.capacity_summary()
+    if est is None or est["cost_source"] is None or est["headroom_ratio"] is None \
+            or headroom != est["headroom_ratio"]:
+        raise AssertionError(f"telemetry: estimate {est}, bulk valve headroom {headroom}")
+    store = timeseries.get_store()
+    series = {fam: [round(v, 4) for _t, v in store.points(fam)]
+              for fam in ("capacity_utilization", "capacity_headroom_ratio",
+                          "capacity_estimated_sets_per_sec")}
+    log(f"  capacity, the sampler's last tick: {est['estimated_sets_per_sec']} sets/s from "
+        f"cost {est['cost_s_per_set']} s a set ({est['cost_source']}) on {est['shards']} "
+        f"shard(s); arrival {est['arrival_sets_per_sec']} sets/s; utilization "
+        f"{est['utilization']}; headroom {est['headroom_ratio']} (the bulk valve reads "
+        f"{headroom}); every tick of the pass {json.dumps(series)}; "
+        f"{cap['sampler']['samples_total']} samples, store {json.dumps(cap['store'])}")
+    dm = transfer_ledger.summary()
+    log(f"  data movement: H2D {dm['h2d_bytes_total']} B by operand "
+        f"{json.dumps(dm['h2d_bytes_by_operand'])} by kind "
+        f"{json.dumps(dm['h2d_bytes_by_kind'])}; D2H {dm['d2h_bytes_total']} B; pack share "
+        f"of the verify wall {dm['pack_share_of_verify_wall']}; H2D bandwidth over "
+        f"device_put {dm['h2d_bandwidth_bytes_per_s']} B/s; pubkey re-upload "
+        f"{json.dumps(dm['pubkey_reupload'])}")
+    mem = transfer_ledger.update_device_memory(force=True)
+    reserved = torch.cuda.memory_reserved(dev) if dev.type == "cuda" else None
+    log(f"  device_memory_bytes {json.dumps(mem)}; the allocator reserves {reserved} B "
+        f"(graph pools and cached segments, which bytes_in_use does not count)")
+    if dev.type == "cuda" and not (mem and mem.get("bytes_in_use") and mem.get("bytes_limit")):
+        raise AssertionError(f"telemetry: device_memory_bytes {mem}")
+    chain = slot_ledger.summary()
+    cards = slot_ledger.slot_cards(last=2)
+    log(f"  slot ledger: {json.dumps(chain)}; newest cards {json.dumps(cards)[:1500]}")
+    out.update(stage_summary=print_stage_summary("telemetry pass"), estimate=est,
+               capacity_series=series, headroom=headroom, data_movement=dm,
+               device_memory=mem,
+               reserved_bytes=reserved, chain_time=chain,
+               pipeline=pipeline_profiler.summary())
+    return out
+
+
 def warm_phase(rng, dev, backend, table, batches, path_rungs, eager, refs) -> dict:
     """Drop the graphs the earlier phases captured on first use, start a
     compile service over the batches' rungs then ``DEFAULT_RUNGS`` (the
@@ -1948,10 +2215,13 @@ def warm_phase(rng, dev, backend, table, batches, path_rungs, eager, refs) -> di
     from lighthouse_tpu_torch.compile_service.service import DEFAULT_RUNGS
     from lighthouse_tpu_torch.crypto.device import bls as dbls, graphs, key_table
 
+    from lighthouse_tpu_torch.utils import pipeline_profiler
+
     graphs.reset()
     dbls.reset_recompile_tracking()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    pipeline_profiler.reset()  # the bubble rows of this phase
     plan = list(dict.fromkeys([*path_rungs, *DEFAULT_RUNGS[:WARM_DEFAULT_RUNGS]]))
     log(f"compile service plan: the batches' rungs {path_rungs}, then "
         f"{WARM_DEFAULT_RUNGS} of the {len(DEFAULT_RUNGS)} default rungs "
@@ -1964,21 +2234,23 @@ def warm_phase(rng, dev, backend, table, batches, path_rungs, eager, refs) -> di
            "paths": {}}
 
     key_table.clear_table(table)  # the raw batches' keys are not the registry's
-    for label in ("gossip", "block"):
+    ledger = {}
+
+    def served(label):
         sets, path = batches[label]
-        out["paths"][label] = served_verify(backend, sets, f"served {label} valid", True,
-                                            path, eager[label])
+        out["paths"][label], ledger[label] = ledger_checked(
+            f"served {label}", backend,
+            lambda: served_verify(backend, sets, f"served {label} valid", True, path,
+                                  eager[label]))
+
+    for label in ("gossip", "block"):
+        served(label)
     stale_input_check(rng, backend, batches["gossip"][0])
     key_table.set_table(table)
     with held_collapse(table):
-        sets, path = batches["gathered block"]
-        out["paths"]["gathered block"] = served_verify(
-            backend, sets, "served gathered block valid", True, path,
-            eager["gathered block"])
-    sets, path = batches["collapsed block"]
-    out["paths"]["collapsed block"] = served_verify(
-        backend, sets, "served collapsed block valid", True, path,
-        eager["collapsed block"])
+        served("gathered block")
+    served("collapsed block")
+    out["ledger"] = ledger
     pts, sc, want = refs["g1"]
     served_sum(f"msm g1 N={MSM_N}",
                lambda: dbls.device_msm_g1(pts, sc, pad_n=MSM_N, device=dev), want,
@@ -1988,6 +2260,15 @@ def warm_phase(rng, dev, backend, table, batches, path_rungs, eager, refs) -> di
                lambda: dbls.device_sum_g2(pts2, pad_n=G2_N, device=dev), want2,
                eager[f"sum g2 N={G2_N}"])
     out["graphs_after"] = graph_summary("captured graphs after the served verifies")
+    out["stage_summary"] = print_stage_summary("phase 9")
+    key_table.clear_table(table)
+    out["overhead"] = telemetry_overhead(
+        backend, {"gossip": (batches["gossip"][0], True),
+                  "block": (batches["block"][0], True)})
+    key_table.set_table(table)
+    with held_collapse(table):  # the node's default path, for comparison
+        out["overhead"].update(telemetry_overhead(
+            backend, {"gathered block": (batches["gathered block"][0], True)}))
     out["service"] = svc
     return out
 
@@ -2196,6 +2477,14 @@ def main() -> int:
     for label in ("loss", "recovery", "watchdog"):
         mesh[label]["pass"].pop("lane_hist")
     print(json.dumps({"mesh": mesh}, default=str), flush=True)
+    log(card)
+
+    log("phase 12c telemetry: one more pass with the ledgers reset and the capacity "
+        "sampler ticking; the stage summary, data movement, chain time, capacity and "
+        "device memory")
+    tel = telemetry_phase(warm["service"], pools, dev)
+    tel["pass"].pop("lane_hist")
+    print(json.dumps({"telemetry": tel}, default=str), flush=True)
     log(card)
 
     log("phase 13 every kernel checked against its plain version and timed at "

@@ -13,6 +13,12 @@ and the dispatch runs in the shard's scope, so the graphs are captured
 on that device and the seen-shape accounting is the shard's. Shards that
 share a card share its graphs: a second shard's warm-up replays them.
 
+Every warm-up runs in ``bls.warming()``: the stage histogram and the
+recompile counter see its dispatches as the JAX package's see its
+warm-up, but the pipeline profiler records them as ``compile`` activity
+and not as busy time on the shard (a capture occupies the card, yet it
+is not traffic).
+
 The JAX module's ``hlo_instruction_count``, ``timed_lower_compile`` and
 ``staged_instruction_counts`` measure XLA programs. Their counterpart
 here is each captured graph's node count, in ``graphs.status()``.
@@ -84,13 +90,17 @@ def staged_captured() -> dict:
     return {"stage1": dbls._stage1, "stage2": dbls._stage2, "stage3": dbls._stage3}
 
 
+@contextlib.contextmanager
 def _shard_scope(shard):
-    """The dispatch scope a warm-up runs under: ``mesh.dispatch_to`` for a
-    mesh shard (the thread-local shard and, for a CUDA shard, its
-    device), a no-op without a mesh or a shard."""
+    """The scope a warm-up runs under: ``bls.warming()``, inside
+    ``mesh.dispatch_to`` for a mesh shard (the thread-local shard and, for
+    a CUDA shard, its device; nothing more without a mesh or a shard)."""
     if shard is None or mesh_mod.get_active_mesh() is None:
-        return contextlib.nullcontext()
-    return mesh_mod.dispatch_to(int(shard))
+        scope = contextlib.nullcontext()
+    else:
+        scope = mesh_mod.dispatch_to(int(shard))
+    with scope, dbls.warming():
+        yield
 
 
 def warm_staged(B: int, K: int, M: int, device="cuda", shard=None) -> dict:

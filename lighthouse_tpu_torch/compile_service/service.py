@@ -32,10 +32,18 @@ module keeps that off the hot path:
   are per shard, each shard's rungs warm in its dispatch scope, and a
   lost shard's rungs are skipped (a probing shard's are live work).
 
+Telemetry, as the JAX service's: the nine ``compile_service_*`` families
+(warm-ups in flight, warm rungs, queue depth, per-stage warm-ups and
+their seconds, cold routes, retries, the fallback's wall, the measured
+serving cost per set) and the ``compile_started`` / ``compile_ready`` /
+``compile_failed`` / ``compile_retry`` / ``cold_route`` journal events. A
+shed flush's fallback journals a zero-byte transfer-ledger row and lands
+its wall as ``compile`` activity in the pipeline profiler.
+
 Left out, and why (``ROADMAP.md``): the persistent compile cache and
 its manifest (``cache.py``; a CUDA graph cannot be written to disk, and
-the kernels' nvcc build already persists under ``_build/``); the metrics
-and journal hooks other than the fallback's wall histogram.
+the kernels' nvcc build already persists under ``_build/``). So every
+``compile_ready`` event says ``persisted=False``.
 """
 
 from __future__ import annotations
@@ -49,7 +57,14 @@ from collections import deque
 from typing import Callable, Iterable, Optional, Tuple
 
 from ..crypto.device import mesh as _mesh
-from ..utils import fault_injection, metrics, tracing
+from ..utils import (
+    fault_injection,
+    flight_recorder,
+    metrics,
+    pipeline_profiler,
+    tracing,
+    transfer_ledger,
+)
 from ..verification_service import planner as _planner
 from ..verification_service.planner import Rung, round_up_bucket
 
@@ -108,12 +123,67 @@ DEFAULT_RETRY_BASE_S = 1.0
 DEFAULT_RETRY_MAX_S = 60.0
 
 
+_COMPILE_BUCKETS = (
+    0.01, 0.05, 0.25, 1.0, 5.0, 15.0, 30.0, 60.0, 120.0, 300.0, 600.0, 1200.0,
+)
+
+_IN_FLIGHT = metrics.gauge(
+    "compile_service_compiles_in_flight",
+    "rung warm-ups (eager run, CUDA-graph capture, check replay per "
+    "stage) the background worker is running right now",
+)
+_WARM_RUNGS = metrics.gauge(
+    "compile_service_warm_rungs",
+    "bucket rungs (B, K, M) x fp_impl x mesh shard whose three stage "
+    "graphs are captured and routable (single-device nodes only ever "
+    "count shard 0)",
+)
+_QUEUE_DEPTH = metrics.gauge(
+    "compile_service_queue_depth",
+    "bucket rungs queued for background warm-up",
+)
+_COMPILES = metrics.counter_vec(
+    "compile_service_compiles_total",
+    "per-stage AOT warm-ups by outcome (ok includes a stage whose graph "
+    "another shard on the same card had already captured: it replays)",
+    ("stage", "outcome"),
+)
+_COMPILE_SECONDS = metrics.histogram_vec(
+    "compile_service_compile_seconds",
+    "per-stage AOT warm-up wall time per rung (a capture takes seconds "
+    "on the card; a warm graph's replay milliseconds)",
+    ("stage",),
+    buckets=_COMPILE_BUCKETS,
+)
+_COLD_ROUTES = metrics.counter_vec(
+    "compile_service_cold_routes_total",
+    "scheduler flushes that arrived at a cold bucket: padded = served "
+    "on a larger warm rung, shed = served via the synchronous CPU "
+    "fallback while the rung's graphs are captured in the background",
+    ("action",),
+)
+_COMPILE_RETRIES = metrics.counter(
+    "compile_service_compile_retries_total",
+    "failed rung warm-ups re-queued with backoff by the retry layer (see "
+    "the compile_retry journal kind); retries beyond the per-rung "
+    "attempt cap are NOT scheduled and the rung stays cold until "
+    "invalidate()/demand re-queues it",
+)
 _FALLBACK_SECONDS = metrics.histogram(
     "compile_service_fallback_verify_seconds",
     "wall time of one synchronous CPU fallback verify of a shed flush — "
     "the latency a submission pays on the SLO layer's `fallback` "
     "resolution path (verification_scheduler_verdict_latency_seconds"
     "{path=fallback}) while the cold rung's graphs are captured behind it",
+)
+_MEASURED_COST = metrics.gauge(
+    "compile_service_measured_cost_seconds_per_set",
+    "organically measured WARM serving cost per signature set: "
+    "cumulative staged-verify wall / cumulative sets across every rung "
+    "note_rung_verified reported, EXCLUDING each rung's first dispatch "
+    "(whose wall includes the captures). The rung-cost feed the "
+    "capacity/headroom estimator reads when no per-shard mesh walls "
+    "exist; per-rung splits in status()['rung_costs']",
 )
 
 
@@ -187,6 +257,7 @@ class WarmShapeRegistry:
             if key in self._warm:
                 return False
             self._warm.add(key)
+            _WARM_RUNGS.set(len(self._warm))
             return True
 
     def is_warm(self, rung: Rung, impl: str, device: int = 0) -> bool:
@@ -223,6 +294,7 @@ class WarmShapeRegistry:
         with self._lock:
             self._warm.clear()
             self._epoch += 1
+            _WARM_RUNGS.set(0)
 
 
 class CompileService:
@@ -379,6 +451,7 @@ class CompileService:
             self._queue.appendleft(item)
         else:
             self._queue.append(item)
+        _QUEUE_DEPTH.set(len(self._queue))
         self._cv.notify_all()  # the worker, and any wait_idle() caller
 
     def request(self, b: int, k: int, m: int, device: int = 0) -> None:
@@ -458,9 +531,26 @@ class CompileService:
                 "device": decision["device"],
             }
         if decision["action"] != "warm":
-            with self._cv:
-                self._cold_routes[decision["action"]] += 1
+            action = decision["action"]
+            with self._cv:  # the flush thread AND verify_now callers
+                self._cold_routes[action] += 1
+            _COLD_ROUTES.with_labels(action).inc()
             eb, ek, em = decision["exact"]
+            rung = decision["rung"]
+            flight_recorder.record(
+                "cold_route",
+                action=action,
+                caller=caller,
+                n_sets=n,
+                k_req=k,
+                m_req=m,
+                exact_b=eb, exact_k=ek, exact_m=em,
+                warm_b=None if rung is None else rung[0],
+                warm_k=None if rung is None else rung[1],
+                warm_m=None if rung is None else rung[2],
+                fp_impl=decision["fp_impl"],
+                device=decision["device"],
+            )
             self.request(eb, ek, em, device=int(device_index))
         return decision
 
@@ -533,10 +623,20 @@ class CompileService:
                     )
                 )
         finally:
+            t1 = time.perf_counter()
             with self._cv:
                 self._fallback_calls += 1
                 self._fallback_sets += len(sets)
-                self._fallback_seconds += time.perf_counter() - t0
+                self._fallback_seconds += t1 - t0
+            # a CPU resolution ships zero host-to-device bytes: its row
+            # keeps the ledger exactly-once across resolution paths (kind
+            # and path from the scheduler's context on this thread), on a
+            # raise too
+            transfer_ledger.record_cpu(len(sets))
+            # the card idles for a capture-caused reason while a shed
+            # flush resolves on the CPU: `compile` activity, and the
+            # current flush record's `fallback` phase
+            pipeline_profiler.note_fallback_wall(t0, t1)
 
     def _fallback_backend_inst(self):
         if self._fallback_backend is None:
@@ -570,8 +670,11 @@ class CompileService:
                 if warm:
                     self._cost_sum_s += float(seconds)
                     self._cost_sum_sets += int(n_sets)
-        if self.registry.mark_ready(rung, self._impl(), epoch=epoch, device=device):
-            self._record_ready()
+                    _MEASURED_COST.set(self._cost_sum_s / self._cost_sum_sets)
+        impl = self._impl()
+        if self.registry.mark_ready(rung, impl, epoch=epoch, device=device):
+            self._record_ready(rung, impl, seconds=None, source="organic",
+                               device=device)
 
     def measured_rung_costs(self) -> dict:
         """Per (rung, device) serving cost, ``"BxKxM@devD" -> {dispatches,
@@ -597,9 +700,19 @@ class CompileService:
             "sum_sets": total_sets,
         }
 
-    def _record_ready(self) -> None:
+    def _record_ready(self, rung: Rung, impl: str, seconds: float | None,
+                      source: str, device: int = 0) -> None:
         with self._cv:  # the worker and organic-warmth verify threads
             self._compiled_total += 1
+        flight_recorder.record(
+            "compile_ready",
+            b=rung[0], k=rung[1], m=rung[2],
+            fp_impl=impl,
+            seconds=None if seconds is None else round(seconds, 3),
+            source=source,
+            persisted=False,
+            device=device,
+        )
 
     # -- background worker ------------------------------------------------
 
@@ -625,12 +738,16 @@ class CompileService:
                 item = self._queue.popleft()
                 self._queued.discard(item)
                 self._in_flight = item
+                _QUEUE_DEPTH.set(len(self._queue))
             try:
                 self._compile_rung(item)
             finally:
                 with self._cv:
+                    # only OUR marker (and the gauge): a superseding
+                    # worker may be mid-warm-up on its own rung
                     if self._in_flight == item:
                         self._in_flight = None
+                        _IN_FLIGHT.set(0)
                     self._cv.notify_all()
 
     def _promote_due_retries_locked(self) -> None:
@@ -644,8 +761,11 @@ class CompileService:
             if it not in self._queued and it != self._in_flight:
                 self._queued.add(it)
                 self._queue.append(it)
+        if due:
+            _QUEUE_DEPTH.set(len(self._queue))
 
-    def _schedule_retry(self, rung: Rung, dev: int) -> None:
+    def _schedule_retry(self, rung: Rung, dev: int, impl: str,
+                        error: BaseException) -> None:
         """A rung failed: re-queue it after a bounded, jittered backoff,
         unless its attempt budget is spent (it then stays cold)."""
         key = (rung, int(dev))
@@ -663,6 +783,16 @@ class CompileService:
             self._retry_at[key] = time.monotonic() + delay
             self._retries_total += 1
             self._cv.notify_all()
+        _COMPILE_RETRIES.inc()
+        b, k, m = rung
+        flight_recorder.record(
+            "compile_retry",
+            b=b, k=k, m=m, fp_impl=impl, device=dev,
+            attempt=attempts,
+            max_attempts=self.retry_max_attempts,
+            delay_s=round(delay, 3),
+            error=repr(error)[:200],
+        )
 
     def _compile_rung(self, item) -> None:
         # item is ((B, K, M), device); a bare (B, K, M) means device 0
@@ -677,30 +807,66 @@ class CompileService:
             return  # a lost shard's rungs are dead weight, not work
         epoch = self.registry.epoch
         b, k, m = rung
+        flight_recorder.record(
+            "compile_started", b=b, k=k, m=m, fp_impl=impl, source="aot",
+            device=dev,
+        )
+        _IN_FLIGHT.set(1)
+        t0 = time.perf_counter()
         try:
-            # chaos seam: an armed `compile` fault point raises here and
-            # exercises the retry layer as a failed capture would
-            fault_injection.fire("compile")
-            if self._compile_rung_fn is not None:
-                stages = self._compile_rung_fn(b, k, m)
-            else:
-                from . import lowering
+            with tracing.span(
+                "compile_service.compile", b=b, k=k, m=m, fp_impl=impl,
+                device=dev,
+            ):
+                # chaos seam: an armed `compile` fault point raises here
+                # and exercises the retry layer as a failed capture would
+                fault_injection.fire("compile")
+                if self._compile_rung_fn is not None:
+                    stages = self._compile_rung_fn(b, k, m)
+                else:
+                    from . import lowering
 
-                stages = lowering.warm_staged(b, k, m, device=self.device, shard=dev)
+                    stages = lowering.warm_staged(b, k, m, device=self.device,
+                                                  shard=dev)
         except Exception as e:  # a failed rung must not kill the worker
             with self._cv:
                 self._failed_total += 1
                 self._last_error = f"{b}x{k}x{m}: {e!r}"[:300]
+            # stage-attributed accounting: the stages that warmed before
+            # the failure count ok, the one that raised counts error (all
+            # three when the failure names no stage)
+            partial = getattr(e, "partial", None) or {}
+            failed_stage = getattr(e, "stage", None)
+            for stage, rec in partial.items():
+                _COMPILES.with_labels(stage, "ok").inc()
+                _COMPILE_SECONDS.with_labels(stage).observe(
+                    float(rec.get("seconds", 0.0)))
+            failed = ((failed_stage,) if failed_stage is not None else
+                      tuple(st for st in ("stage1", "stage2", "stage3")
+                            if st not in partial))
+            for stage in failed:
+                _COMPILES.with_labels(stage, "error").inc()
+            flight_recorder.record(
+                "compile_failed", b=b, k=k, m=m, fp_impl=impl,
+                error=repr(e)[:200], device=dev,
+                attempt=self._attempts.get((rung, dev), 0) + 1,
+            )
             _log.warning("compile service rung %sx%sx%s failed: %r", b, k, m, e)
-            self._schedule_retry(rung, dev)
+            self._schedule_retry(rung, dev, impl, e)
             return
+        seconds = time.perf_counter() - t0
         with self._cv:
             self._attempts.pop((rung, dev), None)
             self._stage_records[(rung, dev)] = dict(stages or {})
+        for stage, rec in (stages or {}).items():
+            _COMPILES.with_labels(stage, "ok").inc()
+            _COMPILE_SECONDS.with_labels(stage).observe(
+                float(rec.get("seconds", 0.0)))
         if self._compile_rung_fn is None:
             self._warm_extras(b, k, impl, dev)
         if self.registry.mark_ready(rung, impl, epoch=epoch, device=dev):
-            self._record_ready()
+            self._record_ready(rung, impl, seconds=seconds, source="aot",
+                               device=dev)
 
     def _warm_extras(self, b: int, k: int, impl: str, dev: int) -> None:
         """The gathered variant's gather (when a key table is attached)
@@ -714,8 +880,12 @@ class CompileService:
             tbl = _kt.get_active_table()
             if tbl is not None:
                 # against this shard's own replica
-                lowering.warm_gather(b, k, tbl, shard=dev)
+                grec = lowering.warm_gather(b, k, tbl, shard=dev)
+                _COMPILES.with_labels("gather", "ok").inc()
+                _COMPILE_SECONDS.with_labels("gather").observe(
+                    float(grec.get("seconds", 0.0)))
         except Exception as e:
+            _COMPILES.with_labels("gather", "error").inc()
             _log.warning("gather warm-up at B=%s K=%s failed: %r", b, k, e)
         if not msm_warm_enabled():
             return
@@ -724,9 +894,13 @@ class CompileService:
             if mkey in self._msm_warmed or self._stopped:
                 continue
             try:
-                lowering.warm_msm(n, device=self.device, shard=dev)
+                mrec = lowering.warm_msm(n, device=self.device, shard=dev)
+                _COMPILES.with_labels("msm", "ok").inc()
+                _COMPILE_SECONDS.with_labels("msm").observe(
+                    float(mrec.get("seconds", 0.0)))
                 self._msm_warmed.add(mkey)
             except Exception as e:
+                _COMPILES.with_labels("msm", "error").inc()
                 _log.warning("MSM warm-up at N=%s failed: %r", n, e)
             break
 

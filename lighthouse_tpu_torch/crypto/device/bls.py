@@ -56,10 +56,21 @@ needs. The gather and the message ``take`` between stages 2 and 3 stay
 eager. With a compile service
 attached (``compile_service``), :class:`CudaBackend` pads each batch to a
 rung whose graphs are already captured.
+
+Telemetry, under the JAX package's names and labels: the
+``bls_device_stage_seconds``, ``_verify_seconds``, ``_recompiles_total``,
+``_batch_lanes_total``, ``_padding_waste_ratio`` and
+``_verify_outcomes_total`` families; one ``bls_stage_verify`` journal
+event per staged verify; the packers' phase clocks and bytes in the
+transfer ledger (``utils/transfer_ledger.py``); each dispatch's busy
+interval in the pipeline profiler (``utils/pipeline_profiler.py``);
+:func:`stage_latency_summary` reads them back. Every hook sits outside
+the stage programs.
 """
 
 from __future__ import annotations
 
+import math
 import secrets
 import threading
 import time
@@ -68,7 +79,15 @@ import numpy as np
 import torch
 
 from ...compile_service import service as _csvc
-from ...utils import fault_injection
+from ...utils import (
+    fault_injection,
+    flight_recorder,
+    metrics,
+    pipeline_profiler,
+    tracing,
+    transfer_ledger,
+)
+from ...verification_service import planner as _planner
 from ...verification_service.planner import round_up_bucket
 from ..bls import BlsError, Signature, parse_compressed_g2_x
 from ..cpu.curve import g2_generator
@@ -245,27 +264,65 @@ def _take_messages(mx, my, minf, msg_idx):
 
 def _staged_verify(
     pk_xy, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand_bits, set_mask,
-    stages: dict | None = None,
+    stages: dict | None = None, gather_record=None,
 ):
     """The three stage programs over the raw packer's planes, each through
     :func:`_run_stage` -> a 0-dim bool tensor on the device. The message
     ``take`` between stages 2 and 3 and the final ``&`` stay outside the
     programs, as in the JAX package's ``_staged_verify``; its one-program
     twin ``verify_batch_raw_fn`` computes the same. ``stages``, when
-    given, receives ``{stage: {"seconds", "fresh"}}``."""
-    (sig_xy, mx, my, minf, sig_ok), s1, f1 = _run_stage(
-        "stage1", _stage1, sig_x, sig_larger, msg_u)
-    outs, s2, f2 = _run_stage(
-        "stage2", _stage2, pk_xy, pk_mask, sig_xy, rand_bits, set_mask)
-    pk_x, pk_y, pk_inf, acc_x, acc_y, acc_inf, flags_ok = outs
-    msg_aff = _take_messages(mx, my, minf, msg_idx)
-    pair_ok, s3, f3 = _run_stage(
-        "stage3", _stage3, pk_x, pk_y, pk_inf, *msg_aff, acc_x, acc_y, acc_inf)
+    given, receives ``{stage: {"seconds", "fresh"}}``.
+
+    Each call journals one ``bls_stage_verify`` event (geometry,
+    ``fp_impl``, per-stage seconds, verdict, whether a stage was fresh;
+    ``gather_record`` adds the gather's), commits this thread's staged
+    transfer-ledger row (on a raise too, with no verdict), and a False
+    verdict calls ``flight_recorder.dump_on_failure``. None of it runs
+    inside a stage program: a captured body runs its Python only at
+    capture."""
+    try:
+        (sig_xy, mx, my, minf, sig_ok), s1, f1 = _run_stage(
+            "stage1", _stage1, sig_x, sig_larger, msg_u)
+        outs, s2, f2 = _run_stage(
+            "stage2", _stage2, pk_xy, pk_mask, sig_xy, rand_bits, set_mask)
+        pk_x, pk_y, pk_inf, acc_x, acc_y, acc_inf, flags_ok = outs
+        msg_aff = _take_messages(mx, my, minf, msg_idx)
+        pair_ok, s3, f3 = _run_stage(
+            "stage3", _stage3, pk_x, pk_y, pk_inf, *msg_aff, acc_x, acc_y, acc_inf)
+    except BaseException:
+        # the pack's bytes already crossed and were counted: its ledger
+        # row lands (no verdict, nothing read back), one row per pack
+        transfer_ledger.commit_verify(None, d2h_bytes=0)
+        raise
     if stages is not None:
         for name, sec, fresh in (("stage1", s1, f1), ("stage2", s2, f2),
                                  ("stage3", s3, f3)):
             stages[name] = {"seconds": sec, "fresh": fresh}
-    return pair_ok & flags_ok & torch.all(sig_ok | ~set_mask)
+    out = pair_ok & flags_ok & torch.all(sig_ok | ~set_mask)
+    # every stage already synced its stream: the verdict read is cheap
+    verdict = bool(out)
+    geometry = {
+        "b": int(pk_xy.shape[0]),
+        "k": int(pk_xy.shape[1]),
+        "m": int(msg_u.shape[0]),
+        "fp_impl": fp.get_impl(),
+    }
+    gather_fields = {}
+    recompiled = bool(f1 or f2 or f3)
+    if gather_record is not None:
+        sg, fg = gather_record
+        gather_fields = {"gathered": True, "gather_s": round(sg, 6)}
+        recompiled = recompiled or bool(fg)
+    flight_recorder.record(
+        "bls_stage_verify",
+        stage1_s=round(s1, 6), stage2_s=round(s2, 6), stage3_s=round(s3, 6),
+        recompiled=recompiled, verdict=verdict, **gather_fields, **geometry,
+    )
+    # the verdict is the only device-to-host read of a staged verify
+    transfer_ledger.commit_verify(verdict, d2h_bytes=out.numel() * out.element_size())
+    if not verdict:
+        flight_recorder.dump_on_failure("stage_verify_failure", **geometry)
+    return out
 
 
 def verify_batch_fn(pk_xy, pk_mask, sig_xy, msg_xy, rand_bits, set_mask):
@@ -318,17 +375,24 @@ def verify_batch_raw_staged_gather(
     card) or inserts an aggregate (the region is cloned, so a held
     snapshot never changes). A graph would keep the old addresses and
     gather from freed memory. Its output is copied into stage 2's static
-    ``pk_xy`` like any other argument."""
-    for name, t in (("table", table), ("aggregate region", agg)):
-        if t.device != pk_idx.device:
-            raise key_table.KeyTableError(
-                f"key {name} lies on {t.device}, the batch on {pk_idx.device}"
-            )
-    pk_xy, sg, fg = _run_stage("gather", _gather_fn, table, agg, pk_idx)
+    ``pk_xy`` like any other argument. The ``bls_stage_verify`` event
+    carries its seconds as ``gather_s``."""
+    try:
+        for name, t in (("table", table), ("aggregate region", agg)):
+            if t.device != pk_idx.device:
+                raise key_table.KeyTableError(
+                    f"key {name} lies on {t.device}, the batch on {pk_idx.device}"
+                )
+        pk_xy, sg, fg = _run_stage("gather", _gather_fn, table, agg, pk_idx)
+    except BaseException:
+        # the raise contract of _staged_verify: the pack's row lands
+        transfer_ledger.commit_verify(None, d2h_bytes=0)
+        raise
     if stages is not None:
         stages["gather"] = {"seconds": sg, "fresh": fg}
     return _staged_verify(pk_xy, pk_mask, sig_x, sig_larger, msg_u, msg_idx,
-                          rand_bits, set_mask, stages=stages)
+                          rand_bits, set_mask, stages=stages,
+                          gather_record=(sg, fg))
 
 
 # ---------------------------------------------------------------------------
@@ -344,12 +408,71 @@ verify_batch_hashed = graphs.CapturedProgram(verify_batch_hashed_fn, "verify_bat
 _msm = graphs.CapturedProgram(msm_mod.msm_g1_fn, "msm_g1")
 _g2sum = graphs.CapturedProgram(msm_mod.sum_g2_fn, "sum_g2")
 
+# ---------------------------------------------------------------------------
+# Hot-path telemetry: the JAX package's families, names and labels
+# (reference: beacon_chain/src/metrics.rs label-vector families). A stage's
+# wall is measured from dispatch to the caller's stream sync. Every hook
+# sits in _run_stage, the packers and the backend, never inside a stage
+# program: a captured body runs its Python once, at capture.
+# ---------------------------------------------------------------------------
+
+_STAGE_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0, 600.0,
+)
+_STAGE_SECONDS = metrics.histogram_vec(
+    "bls_device_stage_seconds",
+    "staged device BLS verifier: per-stage wall time, dispatch to the "
+    "caller's stream sync (the first observation per shape includes the "
+    "eager warm-up and the CUDA-graph capture)",
+    ("stage", "fp_impl"),
+    buckets=_STAGE_BUCKETS,
+)
+_VERIFY_SECONDS = metrics.histogram_vec(
+    "bls_device_verify_seconds",
+    "end-to-end verify_signature_sets wall time (pack + all stages)",
+    ("path", "fp_impl"),
+    buckets=_STAGE_BUCKETS,
+)
+# bls_device_pack_seconds is the transfer ledger's phase-labelled family:
+# the raw and indexed packers observe their phases + total; the hashed
+# packer observes total only, through this handle
+_PACK_TOTAL = transfer_ledger.PACK_SECONDS.with_labels("total")
+_RECOMPILES = metrics.counter_vec(
+    "bls_device_recompiles_total",
+    "fresh (shape, dtype, engines, shard) argument signatures per staged "
+    "program: each one costs an eager warm-up and a CUDA-graph capture "
+    "on the card, assuming callers switch engines only through "
+    "device.reset_compiled_state()",
+    ("stage",),
+)
+_LANES = metrics.counter_vec(
+    "bls_device_batch_lanes_total",
+    "batch geometry: requested vs padded lane counts per dimension "
+    "(B sets, K pubkey slots, M unique messages)",
+    ("dim", "kind"),
+)
+_PAD_WASTE = metrics.gauge(
+    "bls_device_padding_waste_ratio",
+    "1 - live lanes / padded lanes (B*K*M) for the most recent packed "
+    "batch: the same formula as verification_scheduler_padding_waste_"
+    "ratio (verification_service/planner.py). Values differ under a "
+    "planned multi-sub-batch flush: this gauge holds the LAST packed "
+    "batch, the scheduler gauge the whole plan",
+)
+_OUTCOMES = metrics.counter_vec(
+    "bls_device_verify_outcomes_total",
+    "verify_signature_sets verdicts (rejected = host pre-screen)",
+    ("outcome",),
+)
+
 # Arguments' (stage, device, (shape, dtype)...) seen by _run_stage: a
 # first sighting is "fresh", a capture (the JAX package's recompile).
 _seen_stage_shapes: set = set()
 _seen_lock = threading.Lock()
-# stage -> [dispatches, total seconds], every dispatch since import
-stage_seconds: dict = {}
+
+# per thread: True while a compile-service warm-up dispatches (warming())
+_tls = threading.local()
 
 
 def reset_recompile_tracking() -> None:
@@ -359,34 +482,128 @@ def reset_recompile_tracking() -> None:
         _seen_stage_shapes.clear()
 
 
+class warming:
+    """Scope of a compile-service warm-up on this thread
+    (``compile_service/lowering.py``): the pipeline profiler sees the
+    whole scope as ``compile`` activity, opened at entry and closed at
+    exit, and its dispatches through :func:`_run_stage` as no busy
+    interval on any shard. A warm-up on the card (eager run, capture,
+    check replay) occupies the card, but it is not traffic. Nested
+    scopes are one."""
+
+    __slots__ = ("_prev", "_t0")
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "warming", False)
+        _tls.warming = True
+        if not self._prev:
+            self._t0 = time.perf_counter()
+            pipeline_profiler.note_compile_begin(self._t0)
+        return self
+
+    def __exit__(self, *exc):
+        _tls.warming = self._prev
+        if not self._prev:
+            pipeline_profiler.note_compile_wall(self._t0, time.perf_counter())
+        return False
+
+
 def _run_stage(stage: str, fn, *args):
     """One staged dispatch, the counterpart of the JAX package's
     ``_run_stage``: ``fn(*args)``, then a sync of the caller's stream at
     the stage boundary (as ``block_until_ready``; never a device-wide
-    sync, which would wait on another thread's capture), its wall added
-    to :data:`stage_seconds`. No lock is held here: a captured program
-    takes its own (``graphs.py``). "Fresh" is the first sighting of the
-    stage, device, engine triple, mesh shard and argument signature, in
-    place of the recompile counter; it is recorded only after a dispatch
-    that succeeded. The ``staged_dispatch`` fault point fires first,
-    inside the caller's shard scope, where a real card failure would
-    surface. Returns ``(out, elapsed_s, fresh)``."""
+    sync, which would wait on another thread's capture). No lock is held
+    here: a captured program takes its own (``graphs.py``). "Fresh" is
+    the first sighting of the stage, device, engine triple, mesh shard
+    and argument signature, in place of the recompile counter; it is
+    recorded only after a dispatch that succeeded. The
+    ``staged_dispatch`` fault point fires first, inside the caller's
+    shard scope, where a real card failure would surface.
+
+    Telemetry, all outside ``fn``: a ``bls.<stage>`` span, the
+    ``bls_device_stage_seconds{stage,fp_impl}`` histogram,
+    ``bls_device_recompiles_total`` on a fresh key, and the pipeline
+    profiler's busy interval on the shard (none inside :class:`warming`,
+    which the profiler sees as ``compile`` activity). Returns ``(out,
+    elapsed_s, fresh)``."""
     fault_injection.fire("staged_dispatch")
     dev = args[0].device
-    key = (stage, str(dev), graphs.engines(), _mesh.current_shard() or 0,
+    impl = fp.get_impl()
+    shard = _mesh.current_shard() or 0
+    key = (stage, str(dev), graphs.engines(), shard,
            tuple((tuple(a.shape), str(a.dtype)) for a in args))
-    t0 = time.perf_counter()
-    out = fn(*args)
-    if dev.type == "cuda":
-        torch.cuda.current_stream(dev).synchronize()
-    elapsed = time.perf_counter() - t0
+    with tracing.span(f"bls.{stage}", fp_impl=impl, shard=shard):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        elapsed = time.perf_counter() - t0
+        _STAGE_SECONDS.with_labels(stage, impl).observe(elapsed)
     with _seen_lock:
         fresh = key not in _seen_stage_shapes
         _seen_stage_shapes.add(key)
-        rec = stage_seconds.setdefault(stage, [0, 0.0])
-        rec[0] += 1
-        rec[1] += elapsed
+    if fresh:
+        _RECOMPILES.with_labels(stage).inc()
+    if not getattr(_tls, "warming", False):
+        pipeline_profiler.note_stage_wall(stage, shard, t0, t0 + elapsed,
+                                          fresh=fresh)
     return out, elapsed, fresh
+
+
+def stage_latency_summary(impl: str | None = None) -> dict:
+    """Rows of {fp_impl, p50_s, p99_s, mean_s, count} read from the
+    ``bls_device_stage_seconds`` family. With ``impl`` the rows are keyed
+    by stage; with ``impl=None`` every engine is reported, keyed
+    ``stage:fp_impl``. Quantiles are histogram-bucket upper bounds (None
+    = beyond the top bucket); count says how many dispatches (captures
+    included) each row aggregates.
+
+    Also: the end-to-end ``bls_device_verify_seconds`` rows (keyed
+    ``verify:<path>``), the host-pack phases of the transfer ledger
+    (``pack:<phase>``, engine-independent, no ``fp_impl``), and the
+    pipeline profiler's bubbles (``bubble:<cause>``: sum_s, count and
+    mean_s; counters, so no quantiles)."""
+    def _finite(q):
+        return q if math.isfinite(q) else None  # keep the JSON strict
+
+    def _row(child, child_impl):
+        total, sum_, _cum = child.snapshot()
+        if not total:
+            return None
+        return {
+            "fp_impl": child_impl,
+            "p50_s": _finite(child.quantile(0.5)),
+            "p99_s": _finite(child.quantile(0.99)),
+            "mean_s": round(sum_ / total, 4),
+            "count": total,
+        }
+
+    out = {}
+    for (stage, child_impl), child in sorted(_STAGE_SECONDS.children().items()):
+        if impl is not None and child_impl != impl:
+            continue
+        row = _row(child, child_impl)
+        if row:
+            out[stage if impl is not None else f"{stage}:{child_impl}"] = row
+    for (path, child_impl), child in sorted(_VERIFY_SECONDS.children().items()):
+        if impl is not None and child_impl != impl:
+            continue
+        row = _row(child, child_impl)
+        if row:
+            key = (
+                f"verify:{path}"
+                if impl is not None
+                else f"verify:{path}:{child_impl}"
+            )
+            out[key] = row
+    for (phase,), child in sorted(transfer_ledger.PACK_SECONDS.children().items()):
+        row = _row(child, "-")
+        if row:
+            row.pop("fp_impl", None)
+            out[f"pack:{phase}"] = row
+    for cause, row in pipeline_profiler.bubble_rows().items():
+        out[f"bubble:{cause}"] = row
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -413,6 +630,16 @@ def device_msm_g1(points, scalars, pad_n: int | None = None, device="cuda"):
         xy[: len(pts)], inf[: len(pts)] = curve.pack_g1(pts)
     for i, s in enumerate(sc):
         sw[i] = _u64_words(s)
+    # data-movement attribution: live lanes count as point and scalar
+    # bytes, padding lanes as padding; the labels sum to the bytes copied
+    live = len(pts)
+    pk_b = live * (xy.nbytes // N + inf.nbytes // N)
+    aux_b = live * (sw.nbytes // N)
+    transfer_ledger.note_op_bytes(
+        {"pubkeys": pk_b, "aux": aux_b,
+         "padding": xy.nbytes + inf.nbytes + sw.nbytes - pk_b - aux_b},
+        kind="msm",
+    )
     (oxy, oinf), _s, _f = _run_stage("msm", _msm, *_to_device((xy, inf, sw), device))
     oxy, oinf = oxy.cpu(), oinf.cpu()
     return curve.unpack_g1(oxy[None].numpy(), oinf[None].numpy())[0]
@@ -427,6 +654,12 @@ def device_sum_g2(points, pad_n: int | None = None, device="cuda"):
     inf = np.ones((N,), bool)
     if pts:
         xy[: len(pts)], inf[: len(pts)] = curve.pack_g2(pts)
+    # G2 points are signature points: the signatures operand
+    live_b = len(pts) * (xy.nbytes // N + inf.nbytes // N)
+    transfer_ledger.note_op_bytes(
+        {"signatures": live_b, "padding": xy.nbytes + inf.nbytes - live_b},
+        kind="msm",
+    )
     (oxy, oinf), _s, _f = _run_stage("msm", _g2sum, *_to_device((xy, inf), device))
     oxy, oinf = oxy.cpu(), oinf.cpu()
     return curve.unpack_g2(oxy[None].numpy(), oinf[None].numpy())[0]
@@ -449,8 +682,16 @@ def _rand_row(rand_words) -> tuple:
     return np.int32(np.uint32(hi)), np.int32(np.uint32(lo))
 
 
-def _to_device(arrays, device):
-    return tuple(torch.from_numpy(a).to(device) for a in arrays)
+def _to_device(arrays, device, sync: bool = False):
+    """Host arrays -> tensors on ``device``. ``sync`` ends with a sync of
+    the caller's stream on a CUDA device, so that the transfer ledger's
+    ``device_put`` phase times the copy, not its enqueue; never a
+    device-wide sync."""
+    out = tuple(torch.from_numpy(a).to(device) for a in arrays)
+    dev = out[0].device
+    if sync and dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    return out
 
 
 def _pad_sig_lanes(sig_x, n_live: int) -> None:
@@ -481,11 +722,13 @@ def _dedup_messages(messages, pad_m: int | None):
 def _pack_message_planes(sets, B: int, pad_m: int | None):
     """The message half of the raw, indexed and hashed packers: dedup, the
     padded per-lane index plane and the ``hash_to_field`` u-values.
-    -> (msg_u int32[M, 2, 2, NL], msg_idx int32[B])."""
+    -> (msg_u int32[M, 2, 2, NL], msg_idx int32[B], distinct live
+    messages)."""
     msgs, idx = _dedup_messages([m for _, _, m in sets], pad_m)
+    m_req = int(idx.max()) + 1 if len(idx) else 1
     msg_idx = np.zeros((B,), np.int32)
     msg_idx[: len(sets)] = idx
-    return htc.messages_to_u(msgs, DST), msg_idx
+    return htc.messages_to_u(msgs, DST), msg_idx, m_req
 
 
 def _pack_common(sets, B: int, K: int, rand_words):
@@ -548,26 +791,72 @@ def pack_signature_sets_hashed(
     sets = list(sets)
     B, K = _geometry(sets, pad_b, pad_k)
     pk_xy, pk_mask, sig_xy, rand, set_mask = _pack_common(sets, B, K, rand_words)
-    msg_u, msg_idx = _pack_message_planes(sets, B, pad_m)
+    msg_u, msg_idx, _m_req = _pack_message_planes(sets, B, pad_m)
     return _to_device((pk_xy, pk_mask, sig_xy, msg_u, msg_idx, rand, set_mask), device)
 
 
 def _pack_compressed(sets, B: int, rand_words):
     """The signature half of the raw and indexed packers: compressed x
-    limbs, the sign flag, randomness and the set mask."""
+    limbs, the sign flag, randomness and the set mask. -> (the four
+    planes, the seconds of its ``decode`` (byte parsing, randomness),
+    ``limb_split`` (limbs, array fill) and ``pad`` (allocation, padding
+    lanes) phases)."""
+    t0 = time.perf_counter()
     sig_x = np.zeros((B, 2, fp.NL), np.int32)
     sig_larger = np.zeros((B,), bool)
     rand = np.zeros((B, 2), np.int32)
     set_mask = np.zeros((B,), bool)
+    t_pad = time.perf_counter() - t0
+    t_decode = t_fill = 0.0
     for i, (sig, _pks, _msg) in enumerate(sets):
+        t0 = time.perf_counter()
         x0, x1, larger = parse_compressed_g2_x(sig.serialize())
-        rand[i] = _rand_row(rand_words)
+        r = _rand_row(rand_words)
+        t1 = time.perf_counter()
+        t_decode += t1 - t0
+        rand[i] = r
         sig_x[i, 0] = fp.int_to_limbs(x0)
         sig_x[i, 1] = fp.int_to_limbs(x1)
         sig_larger[i] = larger
         set_mask[i] = True
+        t_fill += time.perf_counter() - t1
+    t0 = time.perf_counter()
     _pad_sig_lanes(sig_x, len(sets))
-    return sig_x, sig_larger, rand, set_mask
+    t_pad += time.perf_counter() - t0
+    phases = {"decode": t_decode, "limb_split": t_fill, "pad": t_pad}
+    return (sig_x, sig_larger, rand, set_mask), phases
+
+
+def _ship(planes, device, t_start: float, phases: dict, n_sets: int,
+          pk_slots: int, m_req: int, pubkey_blobs, indexed: bool):
+    """The last phase of the raw and indexed packers: the ``device_put``
+    fault point, the copy of the eight ``planes`` to ``device`` (timed to
+    the caller's stream sync when the transfer ledger is on), and the
+    pack's report: ``bls_device_pack_seconds{phase}``, the ledger's staged
+    row (:func:`transfer_ledger.note_pack`, committed by
+    :func:`_staged_verify`) and the pack as host activity in the pipeline
+    profiler."""
+    ledger_on = transfer_ledger.enabled()
+    t0 = time.perf_counter()
+    fault_injection.fire("device_put")
+    args = _to_device(planes, device, sync=ledger_on)
+    phases["device_put"] = time.perf_counter() - t0
+    total_s = time.perf_counter() - t_start
+    transfer_ledger.observe_pack_phases(phases, total_s)
+    pk, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand, set_mask = planes
+    transfer_ledger.note_pack(
+        n_sets=n_sets, b=pk.shape[0], k=pk.shape[1], m=msg_u.shape[0],
+        pk_slots=pk_slots, m_req=m_req, phases=phases, total_s=total_s,
+        operand_nbytes={
+            "pubkeys": pk.nbytes + pk_mask.nbytes,
+            "signatures": sig_x.nbytes + sig_larger.nbytes,
+            "messages": msg_u.nbytes + msg_idx.nbytes,
+            "aux": rand.nbytes + set_mask.nbytes,
+        },
+        pubkey_blobs=pubkey_blobs, indexed=indexed,
+    )
+    pipeline_profiler.note_pack_wall(t_start, t_start + total_s)
+    return args
 
 
 def pack_signature_sets_raw(
@@ -579,19 +868,40 @@ def pack_signature_sets_raw(
     :func:`_staged_verify` on ``device``. Signatures stay compressed: only
     their bytes are parsed here. ``rand_words()`` gives one nonzero 64-bit
     scalar per set as (hi, lo) words; the default draws from ``secrets``.
-    Byte-identical to the JAX package's packer for the same words."""
+    Byte-identical to the JAX package's packer for the same words.
+
+    Timed by phase (``decode``, ``limb_split``, ``pad``, ``hash``,
+    ``device_put``) for the transfer ledger, which also gets the operand
+    bytes and, when it is on, each pubkey row for its re-upload sketch."""
+    t_start = time.perf_counter()
     sets = list(sets)
     B, K = _geometry(sets, pad_b, pad_k)
     pk_xy = np.zeros((B, K, 2, fp.NL), np.int32)
     pk_mask = np.zeros((B, K), bool)
+    t_pad = time.perf_counter() - t_start
+    # with the ledger off the packer does not pay for the row copies
+    ledger_on = transfer_ledger.enabled()
+    pk_blobs: list = []
+    pk_slots = 0
+    t0 = time.perf_counter()
     for i, (_sig, pks, _msg) in enumerate(sets):
-        pk_xy[i, : len(pks)] = curve.pack_g1(pks)[0]
+        xy = curve.pack_g1(pks)[0]
+        pk_xy[i, : len(pks)] = xy
         pk_mask[i, : len(pks)] = True
-    sig_x, sig_larger, rand, set_mask = _pack_compressed(sets, B, rand_words)
-    msg_u, msg_idx = _pack_message_planes(sets, B, pad_m)
-    fault_injection.fire("device_put")
-    return _to_device(
-        (pk_xy, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand, set_mask), device)
+        pk_slots += len(pks)
+        if ledger_on:
+            pk_blobs.extend(row.tobytes() for row in xy)
+    t_limb = time.perf_counter() - t0
+    (sig_x, sig_larger, rand, set_mask), phases = _pack_compressed(
+        sets, B, rand_words)
+    phases["limb_split"] += t_limb
+    phases["pad"] += t_pad
+    t0 = time.perf_counter()
+    msg_u, msg_idx, m_req = _pack_message_planes(sets, B, pad_m)
+    phases["hash"] = time.perf_counter() - t0
+    return _ship((pk_xy, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand, set_mask),
+                 device, t_start, phases, len(sets), pk_slots, m_req, pk_blobs,
+                 indexed=False)
 
 
 def pack_signature_sets_indexed(
@@ -604,7 +914,10 @@ def pack_signature_sets_indexed(
     index plane and its mask instead of the ``(B, K, 2, NL)`` limb planes,
     5 bytes per pubkey slot instead of 257. ``indices`` holds one index
     list per set (a collapsed committee carries one index). Every other
-    plane is the raw packer's, byte for byte."""
+    plane is the raw packer's, byte for byte, and so are the phase clocks;
+    its ledger row is marked ``indexed`` (the pubkey operand is the index
+    plane, and no G1 row crosses)."""
+    t_start = time.perf_counter()
     sets, indices = list(sets), list(indices)
     if len(indices) != len(sets):
         # a real raise: a silent truncation would leave trailing sets
@@ -615,14 +928,23 @@ def pack_signature_sets_indexed(
     K = pad_k or round_up_bucket(max((len(ix) for ix in indices), default=1))
     pk_idx = np.zeros((B, K), np.int32)
     pk_mask = np.zeros((B, K), bool)
+    t_pad = time.perf_counter() - t_start
+    t0 = time.perf_counter()
     for i, ix in enumerate(indices):
         pk_idx[i, : len(ix)] = ix
         pk_mask[i, : len(ix)] = True
-    sig_x, sig_larger, rand, set_mask = _pack_compressed(sets, B, rand_words)
-    msg_u, msg_idx = _pack_message_planes(sets, B, pad_m)
-    fault_injection.fire("device_put")
-    return _to_device(
-        (pk_idx, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand, set_mask), device)
+    pk_slots = sum(len(ix) for ix in indices)
+    t_fill = time.perf_counter() - t0
+    (sig_x, sig_larger, rand, set_mask), phases = _pack_compressed(
+        sets, B, rand_words)
+    phases["limb_split"] += t_fill
+    phases["pad"] += t_pad
+    t0 = time.perf_counter()
+    msg_u, msg_idx, m_req = _pack_message_planes(sets, B, pad_m)
+    phases["hash"] = time.perf_counter() - t0
+    return _ship((pk_idx, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand, set_mask),
+                 device, t_start, phases, len(sets), pk_slots, m_req, (),
+                 indexed=True)
 
 
 def _active_key_table():
@@ -683,11 +1005,14 @@ class CudaBackend:
         registry; otherwise it runs on ``self.device`` (shard 0)."""
         sets = list(sets)
         if not sets:
+            _OUTCOMES.with_labels("rejected").inc()
             return False
         for sig, pks, _msg in sets:
             if not pks or sig.is_infinity():
+                _OUTCOMES.with_labels("rejected").inc()
                 return False
             if any(pk.is_infinity() for pk in pks):
+                _OUTCOMES.with_labels("rejected").inc()
                 return False
         raw_mode = all(isinstance(s, Signature) for s, _, _ in sets)
         # no lock around the batch: captures run in CUDA's thread-local
@@ -700,6 +1025,7 @@ class CudaBackend:
         resolved = None
         n_collapsed = 0
         path = "raw_staged" if raw_mode else "hashed"
+        impl = fp.get_impl()
         table = _active_key_table()
         if raw_mode and table is not None:
             # before resolving: a batch that cannot gather inserts and
@@ -716,45 +1042,60 @@ class CudaBackend:
                 path = "raw_gather"
         elif table is not None:
             table.count_raw(len(sets))  # bare points never gather
+        # the requested geometry, for routing and the lane accounting; the
+        # gathered path pays the collapsed K axis (a cached sum is one slot)
+        if resolved is not None:
+            k_req = max(len(ix) for ix in resolved)
+            pk_slots = sum(len(ix) for ix in resolved)
+        else:
+            k_req = max(len(pks) for _, pks, _ in sets)
+            pk_slots = sum(len(pks) for _, pks, _ in sets)
+        m_req = len({bytes(m) for _, _, m in sets})
         # warm-shape routing: with a compile service attached, pad up to a
         # rung whose stage graphs are captured (the collapsed K counts)
         svc = _csvc.get_active_service() if raw_mode else None
         pad_b = pad_k = pad_m = warm_epoch = None
         if svc is not None:
             warm_epoch = svc.registry.epoch  # before the dispatch
-            if resolved is not None:
-                k_req = max(len(ix) for ix in resolved)
-            else:
-                k_req = max(len(pks) for _, pks, _ in sets)
-            m_req = len({bytes(m) for _, _, m in sets})
             rung = svc.pads_for(len(sets), k_req, m_req, device=shard)
             if rung is not None:
                 pad_b, pad_k, pad_m = rung
         t1 = time.perf_counter()
-        kw = dict(pad_b=pad_b, pad_k=pad_k, rand_words=self.rand_words,
-                  device=device)
-        if resolved is not None:
-            table.count_shipped(len(sets) - n_collapsed, n_collapsed)
-            args = pack_signature_sets_indexed(sets, resolved, pad_m=pad_m, **kw)
-        elif raw_mode:
-            args = pack_signature_sets_raw(sets, pad_m=pad_m, **kw)
-        else:
+        if not raw_mode:
             try:
                 points = [(s.point_or_infinity() if isinstance(s, Signature) else s,
                            pks, m) for s, pks, m in sets]
             except BlsError:
-                return False  # a signature x that is not on the curve
-            args = pack_signature_sets_hashed(points, **kw)
-        t2 = time.perf_counter()
+                # a signature x that is not on the curve
+                _OUTCOMES.with_labels("rejected").inc()
+                return False
+        kw = dict(pad_b=pad_b, pad_k=pad_k, rand_words=self.rand_words,
+                  device=device)
         stages: dict = {}
-        if resolved is not None:
-            out = verify_batch_raw_staged_gather(table_dev, agg_dev, *args, stages=stages)
-        elif raw_mode:
-            out = _staged_verify(*args, stages=stages)
-        else:
-            out, sec, fresh = _run_stage("hashed", verify_batch_hashed, *args)
-            stages["hashed"] = {"seconds": sec, "fresh": fresh}
-        verdict = bool(out)
+        with tracing.span(
+            "bls.verify_signature_sets", path=path, n_sets=len(sets)
+        ) as sp, _VERIFY_SECONDS.with_labels(path, impl).time():
+            with tracing.span("bls.pack"):
+                if resolved is not None:
+                    table.count_shipped(len(sets) - n_collapsed, n_collapsed)
+                    args = pack_signature_sets_indexed(sets, resolved, pad_m=pad_m, **kw)
+                elif raw_mode:
+                    args = pack_signature_sets_raw(sets, pad_m=pad_m, **kw)
+                else:
+                    with _PACK_TOTAL.time():
+                        args = pack_signature_sets_hashed(points, **kw)
+            t2 = time.perf_counter()
+            self._record_geometry(args, len(sets), k_req, m_req, pk_slots)
+            if resolved is not None:
+                out = verify_batch_raw_staged_gather(table_dev, agg_dev, *args,
+                                                     stages=stages)
+            elif raw_mode:
+                out = _staged_verify(*args, stages=stages)
+            else:
+                out, sec, fresh = _run_stage("hashed", verify_batch_hashed, *args)
+                stages["hashed"] = {"seconds": sec, "fresh": fresh}
+            verdict = bool(out)
+            sp.set(verdict=verdict)
         rung = (int(args[0].shape[0]), int(args[0].shape[1]),
                 int(args[4 if raw_mode else 3].shape[0]))
         self.last_batch = {
@@ -773,7 +1114,31 @@ class CudaBackend:
             svc.note_rung_verified(*rung, epoch=warm_epoch, device=shard,
                                    seconds=time.perf_counter() - t1,
                                    n_sets=len(sets))
+        _OUTCOMES.with_labels("ok" if verdict else "fail").inc()
         return verdict
+
+    @staticmethod
+    def _record_geometry(args, n_sets: int, k_req: int, m_req: int,
+                         pk_slots: int) -> None:
+        """Batch-geometry accounting: requested vs padded B/K/M lanes
+        (``bls_device_batch_lanes_total``) and the padding-waste fraction
+        (``bls_device_padding_waste_ratio``, the planner's formula).
+        ``pk_slots`` is the live pubkey-slot count (a collapsed committee
+        occupies ONE slot on the gathered path)."""
+        b_pad, k_pad = int(args[0].shape[0]), int(args[0].shape[1])
+        # the raw and indexed packers put msg_u at index 4, the hashed at 3
+        m_pad = int(args[4 if len(args) == 8 else 3].shape[0])
+        for dim, req, pad in (
+            ("b", n_sets, b_pad), ("k", k_req, k_pad), ("m", m_req, m_pad)
+        ):
+            _LANES.with_labels(dim, "requested").inc(req)
+            _LANES.with_labels(dim, "padded").inc(pad)
+        _PAD_WASTE.set(
+            _planner.padding_waste_ratio(
+                _planner.live_lanes(pk_slots, m_req),
+                _planner.padded_lanes(b_pad, k_pad, m_pad),
+            )
+        )
 
     # -- single-set entry points (the batch path at B = 1) ------------------
 

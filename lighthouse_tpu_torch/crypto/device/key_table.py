@@ -65,6 +65,13 @@ replica, all-or-nothing; upload bytes are counted per replica; and
 thread's dispatch shard (``mesh.current_shard()``, else the lowest).
 The process-global seam (:func:`set_table` / :func:`get_active_table`)
 lets :class:`~.bls.CudaBackend` reach the table without a handle.
+
+Telemetry, as the JAX table's: six ``bls_device_key_table_*`` families
+(entries, device bytes, upload bytes, sets by shipping path, re-syncs,
+aggregate-cache events), one ``key_table_sync`` journal event per sync
+that added rows, ``key_table_reset`` when retention evicts or recycles
+aggregate rows, and each committee consult noted to the slot ledger as a
+first sighting or a hit.
 """
 
 from __future__ import annotations
@@ -80,7 +87,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...utils import fault_injection, slot_clock
+from ...utils import fault_injection, flight_recorder, metrics, slot_clock, slot_ledger
 from . import curve
 from . import mesh as _mesh
 
@@ -140,6 +147,57 @@ def _env_int(name: str, default: int) -> int:
         return int(os.environ.get(name, ""))
     except ValueError:
         return default
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: the JAX table's families, under the bls_device_ prefix
+# ---------------------------------------------------------------------------
+
+_ENTRIES = metrics.gauge_vec(
+    "bls_device_key_table_entries",
+    "rows resident in the device pubkey table, by region (validators = "
+    "index-identical mirror of the host pubkey cache, append-only; "
+    "aggregates = cached epoch-stable aggregate-pubkey sums)",
+    ("region",),
+)
+_DEVICE_BYTES = metrics.gauge(
+    "bls_device_key_table_device_bytes",
+    "device bytes held by the pubkey table's tensors (validator capacity "
+    "+ aggregate region, limb-packed G1 rows, every replica)",
+)
+_UPLOAD_BYTES = metrics.counter_vec(
+    "bls_device_key_table_upload_bytes_total",
+    "host-to-device bytes uploaded into the key table, by reason "
+    "(startup = initial mirror, delta = deposit admissions, aggregate = "
+    "cached committee sums; counted per replica). Capacity growth copies "
+    "on the device and uploads nothing",
+    ("reason",),
+)
+_SETS = metrics.counter_vec(
+    "bls_device_key_table_sets_total",
+    "signature sets by pubkey-shipping path: indexed = shipped as table "
+    "indices (device gather), collapsed = shipped as ONE cached "
+    "aggregate-sum index (K=1), raw = table attached but at least one "
+    "key not resident, so the whole batch fell back to the G1 limb "
+    "plane. hit ratio = (indexed+collapsed) / all",
+    ("path",),
+)
+_RESYNCS = metrics.counter_vec(
+    "bls_device_key_table_resyncs_total",
+    "full-sync retries after a failed mirror sync: scheduled = a retry "
+    "timer armed with backoff, ok = a retry caught the mirror up, error "
+    "= a retry failed (and re-scheduled)",
+    ("outcome",),
+)
+_AGG_EVENTS = metrics.counter_vec(
+    "bls_device_key_table_agg_events_total",
+    "aggregate-sum cache LOOKUP events: hit (cached tuple found), miss "
+    "(tuple not cached), insert (host sum computed + row uploaded), "
+    "precomputed (insert_precomputed), evict (entry dropped by two-epoch "
+    "retention, slot freed), reset (region recycled wholesale, the "
+    "same-epoch-full last resort)",
+    ("event",),
+)
 
 
 class KeyTableError(RuntimeError):
@@ -277,11 +335,13 @@ class DeviceKeyTable:
             rows, points = self._pack_rows(pubkeys[n_start:n_host], n_start)
             new_dev: Dict[int, torch.Tensor] = {}
             cap_v = cap_start
+            grew = False
             for s in shards:
-                dev, cap_v, _grew = self._grown_array(
+                dev, cap_v, grew_s = self._grown_array(
                     dev_start.get(s), cap_start, n_start, n_host,
                     _mesh.device_of(s, self.device),
                 )
+                grew = grew or grew_s
                 self._write_rows(dev, n_start, rows)
                 new_dev[s] = dev
             fresh_agg = None
@@ -308,9 +368,23 @@ class DeviceKeyTable:
                 for i, p in enumerate(points):
                     self._point_ids[id(p)] = n_start + i
                 self._n = n_host
-                self._uploads[reason] = (
-                    self._uploads.get(reason, 0) + int(rows.nbytes) * len(shards)
-                )
+                nbytes = int(rows.nbytes) * len(shards)
+                self._uploads[reason] = self._uploads.get(reason, 0) + nbytes
+                device_rows = sum(int(t.shape[0]) for t in (*self._dev.values(),
+                                                            *self._agg_dev.values()))
+            _ENTRIES.with_labels("validators").set(n_host)
+            _DEVICE_BYTES.set(device_rows * G1_ROW_BYTES)
+            _UPLOAD_BYTES.with_labels(reason).inc(nbytes)
+            flight_recorder.record(
+                "key_table_sync",
+                reason=reason,
+                added=n_host - n_start,
+                resident=n_host,
+                capacity=cap_v,
+                upload_bytes=nbytes,
+                replicas=len(shards),
+                grew=grew,
+            )
             return n_host - n_start
         raise KeyTableError("sync starved by concurrent syncs")
 
@@ -402,6 +476,7 @@ class DeviceKeyTable:
             self._resync_timer = t
             self._resyncs["scheduled"] += 1
             t.start()
+        _RESYNCS.with_labels("scheduled").inc()
         _log.warning("key-table sync failed (%d in a row), full-sync retry in "
                      "%.3f s: %r", fails, delay, error)
 
@@ -415,11 +490,13 @@ class DeviceKeyTable:
         except Exception as e:
             with self._resync_lock:
                 self._resyncs["error"] += 1
+            _RESYNCS.with_labels("error").inc()
             self._schedule_resync(e)
             return
         with self._resync_lock:
             self._resync_failures = 0
             self._resyncs["ok"] += 1
+        _RESYNCS.with_labels("ok").inc()
 
     def close(self) -> None:
         """Stop the retry machinery: cancel any pending re-sync timer and
@@ -458,6 +535,7 @@ class DeviceKeyTable:
             shard = self._resolve_shard_locked()
             if shard is None:
                 self._sets["raw"] += len(sets)
+                _SETS.with_labels("raw").inc(len(sets))
                 return None
             # epoch-tagged retention, applied only HERE, before any slot
             # of this batch is handed out: at an epoch roll, entries two
@@ -466,11 +544,12 @@ class DeviceKeyTable:
             cur_epoch = slot_clock.get_clock().current_epoch()
             if self._agg_epoch_seen != cur_epoch:
                 self._agg_epoch_seen = cur_epoch
-                self._evict_stale_locked(cur_epoch)
+                self._evict_stale_locked(cur_epoch, journal=True)
             if self._agg_reset_pending:
                 self._agg_reset_pending = False
-                if not self._agg_free and not self._evict_stale_locked(cur_epoch):
-                    self._reset_aggregates_locked()
+                if not self._agg_free and not self._evict_stale_locked(
+                        cur_epoch, journal=True):
+                    self._reset_aggregates_locked(journal=True)
             resolved: List[List[int]] = []
             for _sig, pks, _msg in sets:
                 idxs = []
@@ -478,6 +557,7 @@ class DeviceKeyTable:
                     i = self._point_ids.get(id(p))
                     if i is None:
                         self._sets["raw"] += len(sets)
+                        _SETS.with_labels("raw").inc(len(sets))
                         return None
                     idxs.append(i)
                 resolved.append(idxs)
@@ -498,8 +578,16 @@ class DeviceKeyTable:
                         continue  # known uncacheable (the sum is infinity)
                     if slot >= 0:
                         self._agg_hits += 1
+                        _AGG_EVENTS.with_labels("hit").inc()
+                        # chain time: a collapsed K=1 row served this
+                        # committee (the per-epoch dial's numerator)
+                        slot_ledger.note_committee_sighting("hit")
                         hits[j] = slot
                         continue
+                    _AGG_EVENTS.with_labels("miss").inc()
+                    # a first sighting: host EC sum territory (first +
+                    # hits = committee sightings)
+                    slot_ledger.note_committee_sighting("first")
                     miss_positions.setdefault(key, []).append(j)
                     if len(self._agg_seen) >= _AGG_SEEN_CAP:
                         self._agg_seen.clear()
@@ -558,7 +646,11 @@ class DeviceKeyTable:
                         self._agg_resident += 1
                         self._agg_inserts += 1
                         # per replica: the row crossed to every card
-                        self._uploads["aggregate"] += G1_ROW_BYTES * len(self._agg_dev)
+                        row_bytes = G1_ROW_BYTES * len(self._agg_dev)
+                        self._uploads["aggregate"] += row_bytes
+                        _AGG_EVENTS.with_labels("insert").inc()
+                        _UPLOAD_BYTES.with_labels("aggregate").inc(row_bytes)
+                        _ENTRIES.with_labels("aggregates").set(self._agg_resident)
                     # slot >= 0 also covers a raced duplicate insert: reuse
                     # that row for every position of this tuple
                     for j in miss_positions.get(key, ()):
@@ -646,7 +738,7 @@ class DeviceKeyTable:
                 slot = self._agg_next
                 self._agg_next += 1
             else:
-                self._evict_stale_locked(cur_epoch)
+                self._evict_stale_locked(cur_epoch, journal=True)
                 if not self._agg_free:
                     return "full"
                 slot = self._agg_free.pop()
@@ -655,31 +747,52 @@ class DeviceKeyTable:
             self._agg_epochs[key] = tag
             self._agg_resident += 1
             self._agg_precomputed += 1
-            self._uploads["aggregate"] += G1_ROW_BYTES * len(self._agg_dev)
+            row_bytes = G1_ROW_BYTES * len(self._agg_dev)
+            self._uploads["aggregate"] += row_bytes
+            resident = self._agg_resident
+        _AGG_EVENTS.with_labels("precomputed").inc()
+        _UPLOAD_BYTES.with_labels("aggregate").inc(row_bytes)
+        _ENTRIES.with_labels("aggregates").set(resident)
         return "inserted"
 
-    def _evict_stale_locked(self, cur_epoch: int) -> int:
+    def _evict_stale_locked(self, cur_epoch: int, journal: bool) -> int:
         """Two-epoch retention: drop every entry whose epoch tag is two or
         more epochs behind ``cur_epoch`` onto the free list. The
         generation bump tells any batch that already took slots to ship
-        K indices instead. Returns the entries evicted."""
+        K indices instead. Returns the entries evicted; ``journal``
+        records a ``key_table_reset`` event when any were."""
         stale = [k for k, e in self._agg_epochs.items() if e + 2 <= cur_epoch]
         if not stale:
             return 0
+        dropped_epochs = sorted({self._agg_epochs[k] for k in stale})
         for k in stale:
             slot = self._agg_slots.pop(k, None)
             del self._agg_epochs[k]
             if slot is not None and slot >= 0:
                 self._agg_free.append(slot)
-        self._agg_resident = max(0, self._agg_resident - len(stale))
-        self._agg_evictions += len(stale)
+        freed = len(stale)
+        self._agg_resident = max(0, self._agg_resident - freed)
+        self._agg_evictions += freed
         self._agg_gen += 1
-        return len(stale)
+        _AGG_EVENTS.with_labels("evict").inc(freed)
+        _ENTRIES.with_labels("aggregates").set(self._agg_resident)
+        if journal:
+            flight_recorder.record(
+                "key_table_reset",
+                region="aggregates",
+                mode="evict_epochs",
+                dropped=freed,
+                epochs=",".join(str(e) for e in dropped_epochs),
+                retained=self._agg_resident,
+                current_epoch=cur_epoch,
+            )
+        return freed
 
-    def _reset_aggregates_locked(self) -> None:
+    def _reset_aggregates_locked(self, journal: bool) -> None:
         """Recycle the aggregate region wholesale: the last resort when it
         filled inside one epoch and eviction freed nothing. ``_agg_seen``
         survives so a hot tuple re-inserts on its next sighting."""
+        had = self._agg_resident
         self._agg_slots.clear()
         self._agg_epochs.clear()
         self._agg_free.clear()
@@ -687,6 +800,13 @@ class DeviceKeyTable:
         self._agg_resident = 0
         self._agg_resets += 1
         self._agg_gen += 1
+        _AGG_EVENTS.with_labels("reset").inc()
+        _ENTRIES.with_labels("aggregates").set(0)
+        if journal:
+            flight_recorder.record(
+                "key_table_reset", region="aggregates", mode="wholesale",
+                dropped=had,
+            )
 
     # -- accounting -----------------------------------------------------------
 
@@ -696,12 +816,17 @@ class DeviceKeyTable:
         with self._lock:
             self._sets["indexed"] += int(n_indexed)
             self._sets["collapsed"] += int(n_collapsed)
+        if n_indexed:
+            _SETS.with_labels("indexed").inc(int(n_indexed))
+        if n_collapsed:
+            _SETS.with_labels("collapsed").inc(int(n_collapsed))
 
     def count_raw(self, n_sets: int) -> None:
         """A batch fell back to the raw plane for a reason resolve_sets
         did not see (bare-point sets, which never gather)."""
         with self._lock:
             self._sets["raw"] += int(n_sets)
+        _SETS.with_labels("raw").inc(int(n_sets))
 
     def device_arrays(self, shard: Optional[int] = None):
         """(validator tensor, aggregate tensor) snapshot of one replica:

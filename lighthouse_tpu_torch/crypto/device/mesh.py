@@ -19,6 +19,10 @@ re-verifies on a failover shard (the re-verify is the verdict).
 Health: per-card sets/s over a rolling window, failure counts,
 lost/healthy state and per-card ``device_memory_bytes`` feed the
 ``bls_device_shard_*`` families; transitions journal ``shard_lost``.
+:meth:`DeviceMesh.status` reads each shard's ``bubble_ratio`` from the
+pipeline profiler (whose ``bls_device_shard_busy_seconds_total`` counts
+each shard's staged dispatches), and the capacity estimator
+(``utils/timeseries.py``) reads :func:`healthy_shard_count`.
 
 Self-healing: a lost shard enters probation. A background recovery
 worker (:meth:`DeviceMesh.start_recovery`) probes it on a capped
@@ -51,7 +55,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from ...utils import flight_recorder, metrics
+from ...utils import flight_recorder, metrics, pipeline_profiler
 
 _ENV_ENABLED = "LIGHTHOUSE_TPU_DP_MESH"
 _ENV_DEVICES = "LIGHTHOUSE_TPU_DP_DEVICES"
@@ -635,10 +639,10 @@ class DeviceMesh:
                     "dispatches": st.dispatches,
                     "sets_per_sec": round(rate, 2),
                     "device_memory_bytes": mem.get(i),
-                    # the per-card idle share of the staged dispatch
-                    # timeline needs the pipeline profiler (ROADMAP item
-                    # 14); None until it is ported
-                    "bubble_ratio": None,
+                    # idle / (busy + idle) of this shard's staged
+                    # dispatch timeline (pipeline profiler, host clock);
+                    # None before its first dispatch
+                    "bubble_ratio": pipeline_profiler.shard_bubble_ratio(i),
                     "lost_error": st.lost_error,
                     "probation": st.probation,
                     "probe_attempts": st.probe_attempts,
@@ -758,8 +762,10 @@ def device_of(shard: Optional[int], default):
 
 
 def healthy_shard_count() -> int:
-    """Healthy shards the attached mesh serves on right now, read live;
-    0 when no mesh is attached."""
+    """Healthy shards the attached mesh serves on right now, read live:
+    the shard-count feed of the capacity estimator
+    (``utils/timeseries.py``), which must not lag a card loss as the
+    flush-time dp gauge would; 0 when no mesh is attached."""
     mesh = _mesh
     if mesh is None:
         return 0

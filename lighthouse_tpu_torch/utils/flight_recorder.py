@@ -54,10 +54,19 @@ DUMP_PREFIX = "lighthouse_tpu_flight_"
 # port, snake_case. The JAX package's other kinds arrive with their
 # producers.
 EVENT_KINDS = (
+    "bls_stage_verify",       # crypto/device/bls.py, one per staged verify
     "bulk_resume",            # verification_service/admission.py, excursion end
     "bulk_throttle",          # verification_service/admission.py, bulk paused
+    "cold_route",             # compile_service/service.py, cold-bucket flush
+    "compile_failed",         # compile_service/service.py, per failed rung
+    "compile_ready",          # compile_service/service.py, rung now warm
+    "compile_retry",          # compile_service/service.py, failed rung re-queued
+    "compile_started",        # compile_service/service.py, per AOT rung
     "deadline_miss",          # verification_service/batcher.py, SLO miss
     "fault_injected",         # utils/fault_injection.py, one per injected fault
+    "key_table_reset",        # crypto/device/key_table.py, agg region recycle
+    "key_table_sync",         # crypto/device/key_table.py, startup/delta rows
+    "pipeline_flush",         # utils/pipeline_profiler.py, one per flush
     "scheduler_bisection",    # verification_service/batcher.py, per split
     "scheduler_flush",        # verification_service/batcher.py, per batch
     "scheduler_plan",         # verification_service/batcher.py, per flush plan
@@ -67,6 +76,7 @@ EVENT_KINDS = (
     "shard_probation",        # crypto/device/mesh.py, probation entry/failed probe
     "shard_recovered",        # crypto/device/mesh.py, chip re-admitted to axis
     "slo_burn",               # verification_service/slo.py, budget burn alert
+    "transfer_ledger",        # utils/transfer_ledger.py, one per verify
     "watchdog_reaped",        # verification_service/batcher.py, hung dispatch
 )
 _KINDS = frozenset(EVENT_KINDS)
@@ -152,6 +162,13 @@ def record(kind: str, /, **fields) -> None:
         _ring[_seq % _capacity] = ev
         _seq += 1
     _EVENTS_TOTAL.with_labels(kind).inc()
+    if kind.endswith("_rejected"):
+        # chain-time attribution: every journal rejection lands on its
+        # slot's report card (utils.slot_ledger imports neither this
+        # module nor torch: no cycle)
+        from . import slot_ledger
+
+        slot_ledger.note_rejection(kind)
     if _subscribers:
         _notify(ev)
 

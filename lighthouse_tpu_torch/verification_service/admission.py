@@ -10,9 +10,9 @@ two signals says the node is out of slack:
   arrival/capacity)) below ``floor`` (default 0.10,
   ``LIGHTHOUSE_TPU_SCHED_BULK_HEADROOM_FLOOR``). An UNKNOWN headroom
   reads as "no signal", never as "no headroom". The default feed is the
-  JAX package's capacity estimator (``utils/timeseries.py``), which the
-  port does not have yet: until it does, :func:`_live_headroom` answers
-  None and only an injected ``headroom_fn`` can throttle on headroom;
+  capacity estimator's latest headroom (``utils/timeseries.py``,
+  :func:`_live_headroom`): None until the sampler has measured a cost
+  and an arrival rate;
 * **the SLO burn latch** (``slo.py``, ``latched_kinds()``): a confirmed
   ``slo_burn`` excursion on any deadline-class kind pauses bulk at once.
 
@@ -37,7 +37,7 @@ import threading
 import time
 from typing import Callable, Optional
 
-from ..utils import flight_recorder, metrics
+from ..utils import flight_recorder, metrics, timeseries
 
 DEFAULT_HEADROOM_FLOOR = 0.10
 DEFAULT_RESUME_HEADROOM = 0.20
@@ -69,9 +69,15 @@ _THROTTLE_EVENTS = metrics.counter_vec(
 
 def _live_headroom() -> Optional[float]:
     """The default headroom feed: the capacity estimator's latest
-    ``headroom_ratio``. The port has no capacity estimator yet, so this
-    answers None: 'no signal', never 'no headroom'."""
-    return None
+    ``headroom_ratio`` (None when the sampler is off or nothing has been
+    measured yet: 'no signal', never 'no headroom')."""
+    try:
+        est = timeseries.last_estimate()
+        if est is None:
+            return None
+        return est.get("headroom_ratio")
+    except Exception:
+        return None
 
 
 class BulkAdmissionController:

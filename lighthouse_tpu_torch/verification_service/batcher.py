@@ -90,8 +90,15 @@ discarded), counted in ``verification_scheduler_watchdog_reaped_total``,
 journaled as ``watchdog_reaped``, and raises :class:`WatchdogTimeout`
 into the failover path above.
 
-Not ported here: the ``pipeline_profiler``, ``slot_ledger`` and
-``transfer_ledger`` hooks (ROADMAP item 14).
+Telemetry, at the JAX scheduler's hook points: each flush is one
+pipeline-profiler record (``flush_begin``, the plan's wall, a
+``flush_scope`` on every dispatching thread, ``flush_end`` journals one
+``pipeline_flush`` event), the flush thread's empty-queue waits are
+``queue_empty`` activity, every backend call runs in a transfer-ledger
+``context(kind, path)``, and every resolution and bulk admission is noted
+to the slot ledger. A thread the scheduler starts for a dispatch (a
+mesh shard's flush worker, the watchdog's thread) enters the caller's
+flush scope and ledger context itself: both are thread-local.
 """
 
 from __future__ import annotations
@@ -105,7 +112,14 @@ from typing import Callable, List, Optional
 
 from ..crypto import bls
 from ..crypto.device import mesh as mesh_mod
-from ..utils import flight_recorder, metrics, tracing
+from ..utils import (
+    flight_recorder,
+    metrics,
+    pipeline_profiler,
+    slot_ledger,
+    tracing,
+    transfer_ledger,
+)
 from .admission import BulkAdmissionController
 from .planner import BUCKET_LADDER, FlushPlanner, round_up_bucket
 from .slo import SloTracker
@@ -443,6 +457,9 @@ class VerificationScheduler:
         self._bulk_flushes = 0
         self._bulk_sets_flushed = 0
         self._bulk_shed = 0
+        # throttle-transition latch for the slot ledger's parked sets:
+        # one note per excursion, never per recheck poll
+        self._bulk_parked_noted = False
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._pending: deque[_Submission] = deque()
@@ -692,25 +709,29 @@ class VerificationScheduler:
                         # cold-route cost (the other fallback call sites
                         # already label it this way)
                         path = "fallback"
-                        return svc.fallback_verify(sets)
-                if mesh is not None and primary is not None:
-                    t_mesh = time.monotonic()
-                    try:
-                        out = self._dispatch_on(
-                            self._verify, sets, primary, self.watchdog_bypass_s,
-                        )
-                    except BaseException as e:  # noqa: BLE001 — failover decides
-                        # one retry on a failover shard, the sub-batches'
-                        # contract; a failover that raises the same way
-                        # means the work is the problem and the raise
-                        # reaches the caller
-                        return self._failover_retry(
-                            self._verify, sets, primary, e, mesh,
-                            watchdog_s=self.watchdog_bypass_s,
-                        )
-                    mesh.note_dispatch(primary, len(sets), time.monotonic() - t_mesh)
-                    return out
-                return self._verify(sets)
+                        with transfer_ledger.context(kind, path):
+                            return svc.fallback_verify(sets)
+                with transfer_ledger.context(kind, path):
+                    if mesh is not None and primary is not None:
+                        t_mesh = time.monotonic()
+                        try:
+                            out = self._dispatch_on(
+                                self._verify, sets, primary,
+                                self.watchdog_bypass_s,
+                            )
+                        except BaseException as e:  # noqa: BLE001 — failover decides
+                            # one retry on a failover shard, the
+                            # sub-batches' contract; a failover that raises
+                            # the same way means the work is the problem
+                            # and the raise reaches the caller
+                            return self._failover_retry(
+                                self._verify, sets, primary, e, mesh,
+                                watchdog_s=self.watchdog_bypass_s,
+                            )
+                        mesh.note_dispatch(primary, len(sets),
+                                           time.monotonic() - t_mesh)
+                        return out
+                    return self._verify(sets)
         finally:
             # the bypass IS this caller's end-to-end latency: no queue,
             # but a cold-route fallback or a slow device dispatch can
@@ -755,6 +776,15 @@ class VerificationScheduler:
             # never a cached flag (see _submit_bulk)
             if self._bulk_pending_sets or self._admission.throttled():
                 self._admission.evaluate()
+                # chain time: on entering a throttle excursion, the sets
+                # sitting in the bulk queue are PARKED, noted once per
+                # excursion to the slot the valve closed in
+                throttled_now = self._admission.throttled()
+                if throttled_now and not self._bulk_parked_noted:
+                    parked = self._bulk_pending_sets
+                    if parked:
+                        slot_ledger.note_bulk(parked_sets=parked)
+                self._bulk_parked_noted = throttled_now
             trigger = None
             bulk = False
             with self._cv:
@@ -794,7 +824,22 @@ class VerificationScheduler:
                         # (latch expiry, headroom recovery) moves without
                         # a notify — re-poll instead of parking forever
                         waits.append(self._bulk_recheck_s)
+                    # an empty-queue wait is the `queue_empty` bubble
+                    # cause: a device gap beside it is traffic's, not the
+                    # pipeline's (timed only when the DEADLINE queue is
+                    # empty: parked bulk is idle by design). Opened
+                    # eagerly, so a verify_now gap closing while this
+                    # thread still waits sees it
+                    idle_t0 = (
+                        time.perf_counter() if not self._pending else None
+                    )
+                    if idle_t0 is not None:
+                        pipeline_profiler.note_idle_begin(idle_t0)
                     self._cv.wait(min(waits) if waits else None)
+                    if idle_t0 is not None:
+                        pipeline_profiler.note_idle_end(
+                            idle_t0, time.perf_counter()
+                        )
                     if self._bulk_pending and self._admission.throttled():
                         # re-evaluate admission outside the lock before
                         # the next wait round
@@ -872,6 +917,19 @@ class VerificationScheduler:
         if qos == "bulk":
             self._bulk_flushes += 1
             self._bulk_sets_flushed += n_sets
+            # chain time: the sets the admission valve let through
+            slot_ledger.note_bulk(admitted_sets=n_sets)
+        # one pipeline-profiler record per flush: queue wait (the oldest
+        # submission's; 0 for bulk, whose wait is its class contract),
+        # plan, pack, device and fallback walls from this thread and the
+        # shard workers (flush_scope below); flush_end journals one
+        # pipeline_flush event (None when the profiler is off)
+        prec = pipeline_profiler.flush_begin(
+            trigger=trigger, kinds=kinds_mix, n_submissions=len(subs),
+            n_sets=n_sets, queue_wait_s=(
+                0.0 if qos == "bulk" else now - subs[0].submitted_at
+            ),
+        )
         svc = self._compile_service
         if svc is not None and not svc.active():
             svc = None
@@ -896,7 +954,9 @@ class VerificationScheduler:
                     warm = svc.warm_rungs_active()
             except Exception:
                 warm = None
+        t_plan = time.perf_counter()
         plan = self._planner.plan(subs, warm_rungs=warm, shards=shards, qos=qos)
+        pipeline_profiler.note_plan_wall(t_plan, time.perf_counter(), record=prec)
         _PLANS.with_labels(plan.mode).inc()
         _FLUSHES.with_labels(trigger).inc()
         waste = plan.waste()
@@ -934,20 +994,24 @@ class VerificationScheduler:
             dp_shards=len(plan.shards_used()),
         ) as sp:
             def run_one(idx: int, sb) -> None:
-                try:
-                    results[idx] = self._dispatch_sub_batch(
-                        sb, svc, mesh, plan.mode, trigger, qos
-                    )
-                except BaseException as e:  # noqa: BLE001 — futures first
-                    # a worker must never strand its futures: whatever
-                    # slipped past the dispatch path's own handling is
-                    # delivered to every submission (the caller sees the
-                    # raise a direct call would have surfaced)
-                    for s in sb.subs:
-                        self._account(s, "sub_batch")
-                        _SUBMISSIONS.with_labels(s.kind, "error").inc()
-                        if not s.future.done():
-                            s.future.set_exception(e)
+                # the profiler scope rides on the dispatching thread (the
+                # flush thread, or a shard worker): pack, device and
+                # fallback walls under it attribute to THIS flush
+                with pipeline_profiler.flush_scope(prec):
+                    try:
+                        results[idx] = self._dispatch_sub_batch(
+                            sb, svc, mesh, plan.mode, trigger, qos
+                        )
+                    except BaseException as e:  # noqa: BLE001 — futures first
+                        # a worker must never strand its futures: whatever
+                        # slipped past the dispatch path's own handling is
+                        # delivered to every submission (the caller sees
+                        # the raise a direct call would have surfaced)
+                        for s in sb.subs:
+                            self._account(s, "sub_batch")
+                            _SUBMISSIONS.with_labels(s.kind, "error").inc()
+                            if not s.future.done():
+                                s.future.set_exception(e)
 
             if multi_shard:
                 workers = [
@@ -977,6 +1041,13 @@ class VerificationScheduler:
                     dev_padded += rec["paid"]
                 all_ok = all_ok and rec["ok"]
             sp.set(verdict=all_ok)
+        # one pipeline_flush event per flush: bisections, shed sub-batches
+        # and worker crashes included (the record closed is the one opened)
+        pipeline_profiler.flush_end(
+            prec, verdict=all_ok, mode=plan.mode,
+            n_sub_batches=len(plan.sub_batches),
+            dp_shards=plan.shards_used(),
+        )
         if dev_padded:
             # gauges describe device lanes only (consistent with
             # verification_scheduler_plan_lanes_total): an all-shed
@@ -1124,12 +1195,18 @@ class VerificationScheduler:
         if not deadline_s or deadline_s <= 0:
             with mesh_mod.dispatch_to(shard):
                 return verify(sets)
+        # the watchdog's thread re-enters this thread's ledger context and
+        # flush scope (both thread-local) with the shard's dispatch scope
+        ctx = transfer_ledger.current_context()
+        rec = pipeline_profiler.current_flush()
         box: dict = {}
         done = threading.Event()
 
         def target():
             try:
-                with mesh_mod.dispatch_to(shard):
+                with transfer_ledger.context(*ctx), \
+                        pipeline_profiler.flush_scope(rec), \
+                        mesh_mod.dispatch_to(shard):
                     box["ok"] = verify(sets)
             except BaseException as e:  # noqa: BLE001 — relayed below
                 box["err"] = e
@@ -1230,11 +1307,16 @@ class VerificationScheduler:
         retries ARE the latency the submitter experienced)."""
         if verify is None:
             verify = self._verify
+        # data-movement attribution: the backend's pack under this call
+        # charges its bytes to this group's kind mix and resolution path
+        # (a bisection retry's re-packed bytes land under path=bisection)
+        kinds = "+".join(sorted({s.kind for s in subs}))
         try:
-            ok = bool(verify(
-                fused if fused is not None
-                else [st for s in subs for st in s.sets]
-            ))
+            with transfer_ledger.context(kinds, path):
+                ok = bool(verify(
+                    fused if fused is not None
+                    else [st for s in subs for st in s.sets]
+                ))
         except BaseException as e:  # noqa: BLE001 — flush thread survives
             if len(subs) == 1:
                 sub = subs[0]
@@ -1308,6 +1390,11 @@ class VerificationScheduler:
         missed = qos == "deadline" and latency_s > budget_s
         _VERDICT_LATENCY.with_labels(kind, path).observe(latency_s)
         self._slo.observe(kind, path, latency_s, missed, qos=qos)
+        # chain time: the one point every resolution path funnels through,
+        # so each submission lands on its slot's report card exactly once
+        slot_ledger.note_resolution(
+            kind, path, n_sets, latency_s, missed=missed, qos=qos
+        )
         if missed:
             _DEADLINE_MISSES.with_labels(kind).inc()
             flight_recorder.record(

@@ -38,16 +38,18 @@ shards.
 This module also owns the bucket ladder every packer and the compile
 service pad to (:data:`BUCKET_LADDER`, :func:`round_up_bucket`), the one
 lane/padding-waste formula (:func:`padded_lanes`, :func:`live_lanes`,
-:func:`padding_waste_ratio`) and the analytic host-to-device byte model
-of a padded rung (:func:`operand_bytes_model`,
-:func:`live_operand_bytes`, the JAX package's ``transfer_ledger``
-models) that sub-batches carry as ``est_h2d_bytes``.
+:func:`padding_waste_ratio`) and the sub-batches' ``est_h2d_bytes``, priced by the transfer
+ledger's analytic byte model of a padded rung
+(``utils/transfer_ledger.operand_bytes_model`` and
+``live_operand_bytes``).
 """
 
 from __future__ import annotations
 
 import os
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
+
+from ..utils import transfer_ledger
 
 Rung = Tuple[int, int, int]  # (B, K, M) padded bucket shape
 
@@ -112,62 +114,6 @@ def padding_waste_ratio(live: int, padded: int) -> float:
     if padded <= 0:
         return 0.0
     return max(0.0, 1.0 - live / float(padded))
-
-
-# ---------------------------------------------------------------------------
-# Host-to-device byte model of a padded rung (the JAX package's
-# ``utils/transfer_ledger.py`` models, int32 limb layout: NL = 32 12-bit
-# limbs per field element)
-# ---------------------------------------------------------------------------
-
-NL = 32                         # limbs per field element (== fp.NL)
-_FP_BYTES = NL * 4              # one Fp element, int32 limbs
-G1_POINT_BYTES = 2 * _FP_BYTES  # affine (x, y): one packed pubkey row
-_FP2_BYTES = 2 * _FP_BYTES
-# one pubkey slot: raw = a limb-packed G1 affine row + its mask bool;
-# indexed = an int32 key-table index + its mask bool
-INDEXED_SLOT_BYTES = 4 + 1
-
-
-def operand_bytes_model(
-    b: int, k: int, m: int, indexed: bool = False
-) -> Dict[str, int]:
-    """Bytes a padded (B, K, M) raw pack ships host to device, per operand
-    family:
-
-    * ``pubkeys``: ``pk_xy`` int32[B,K,2,NL] + ``pk_mask`` bool[B,K], or,
-      with ``indexed=True`` (the key table's gathered pack), ``pk_idx``
-      int32[B,K] + ``pk_mask`` bool[B,K]
-    * ``signatures``: ``sig_x`` int32[B,2,NL] + ``sig_larger`` bool[B]
-    * ``messages``: ``msg_u`` int32[M,2,2,NL] + ``msg_idx`` int32[B]
-    * ``aux``: ``rand`` int32[B,2] + ``set_mask`` bool[B]
-    """
-    slot = INDEXED_SLOT_BYTES if indexed else G1_POINT_BYTES + 1
-    out = {
-        "pubkeys": b * k * slot,
-        "signatures": b * (_FP2_BYTES + 1),
-        "messages": m * 2 * _FP2_BYTES + b * 4,
-        "aux": b * (2 * 4 + 1),
-    }
-    out["total"] = sum(out.values())
-    return out
-
-
-def live_operand_bytes(
-    n_sets: int, pk_slots: int, m_req: int, indexed: bool = False
-) -> Dict[str, int]:
-    """The share of :func:`operand_bytes_model` the callers asked for:
-    ``pk_slots`` real pubkey slots, ``n_sets`` live lanes, ``m_req``
-    distinct messages. ``padded - live`` is the padding share."""
-    slot = INDEXED_SLOT_BYTES if indexed else G1_POINT_BYTES + 1
-    out = {
-        "pubkeys": pk_slots * slot,
-        "signatures": n_sets * (_FP2_BYTES + 1),
-        "messages": m_req * 2 * _FP2_BYTES + n_sets * 4,
-        "aux": n_sets * (2 * 4 + 1),
-    }
-    out["total"] = sum(out.values())
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -252,10 +198,10 @@ class PlannedSubBatch:
         # the callers asked for — the shared analytic model pinned
         # against the packer's actual ndarray.nbytes by test. A static
         # sub-batch prices the index plane.
-        self.est_h2d_bytes = operand_bytes_model(
+        self.est_h2d_bytes = transfer_ledger.operand_bytes_model(
             *rung, indexed=static
         )["total"]
-        self.est_live_h2d_bytes = live_operand_bytes(
+        self.est_live_h2d_bytes = transfer_ledger.live_operand_bytes(
             n_sets, pk_slots, m_req, indexed=static
         )["total"]
 

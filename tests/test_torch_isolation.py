@@ -43,7 +43,9 @@ def test_no_forbidden_import_statements():
             "verification_service/slo.py", "verification_service/admission.py",
             "verification_service/traffic.py", "utils/metrics.py", "utils/tracing.py",
             "utils/flight_recorder.py", "crypto/native.py", "_native/__init__.py",
-            "crypto/device/mesh.py", "utils/fault_injection.py"} <= names
+            "crypto/device/mesh.py", "utils/fault_injection.py",
+            "utils/slot_ledger.py", "utils/transfer_ledger.py",
+            "utils/pipeline_profiler.py", "utils/timeseries.py"} <= names
     bad = []
     for path in sources:
         for name in _imports(ast.parse(path.read_text(), str(path))):
@@ -76,7 +78,9 @@ print(json.dumps(added))
                 "compile_service.lowering", "verification_service.planner",
                 "utils.slot_clock", "verification_service.batcher",
                 "verification_service.traffic", "crypto.native", "_native",
-                "crypto.device.mesh", "utils.fault_injection"):
+                "crypto.device.mesh", "utils.fault_injection",
+                "utils.slot_ledger", "utils.transfer_ledger",
+                "utils.pipeline_profiler", "utils.timeseries"):
         assert f"lighthouse_tpu_torch.{mod}" in ported
     leaked = [m for m in added if _forbidden(m) or m.startswith("jax")]
     assert not leaked, leaked

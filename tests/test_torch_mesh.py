@@ -47,6 +47,7 @@ from lighthouse_tpu_torch.crypto.device import mesh as tmesh
 from lighthouse_tpu_torch.utils import fault_injection as tfi
 from lighthouse_tpu_torch.utils import flight_recorder as tfr
 from lighthouse_tpu_torch.utils import metrics as tmetrics
+from lighthouse_tpu_torch.utils import pipeline_profiler as tpp
 from lighthouse_tpu_torch.verification_service import VerificationScheduler as TorchScheduler
 from lighthouse_tpu_torch.verification_service import traffic as ttraffic
 from lighthouse_tpu_torch.verification_service.batcher import WatchdogTimeout as TorchWatchdog
@@ -290,6 +291,7 @@ def test_port_mesh_devices_and_scope_on_explicit_devices():
     assert m.device_for(0) == torch.device("cpu") and m.device_for(5) is None
     assert m.memory_by_shard() == {0: None, 1: None, 2: None}
     assert m._default_canary(0) and m._default_canary(2)
+    tpp.reset()  # no dispatch recorded yet: every shard's ratio is None
     st = m.status()
     assert [c["platform"] for c in st["chips"]] == ["cpu", "cpu", None]
     assert all(c["bubble_ratio"] is None for c in st["chips"])
@@ -311,9 +313,8 @@ def test_mesh_metric_families_match_jax():
               if n.startswith(("bls_device_shard_", "fault_"))}
     tnames = {n for n in tmetrics.registry_snapshot()
               if n.startswith(("bls_device_shard_", "fault_"))}
-    # the JAX package's busy-seconds family is the pipeline profiler's
-    # (ROADMAP item 14)
-    assert len(tnames) == 10 and jnames - tnames == {"bls_device_shard_busy_seconds_total"}
+    # the busy-seconds family is the pipeline profiler's, in both packages
+    assert len(tnames) == 11 and tnames == jnames
     for name in tnames:
         assert type(tmetrics.get(name)).__name__ == type(jmetrics.get(name)).__name__
 

@@ -282,9 +282,10 @@ def test_routing_against_a_stub_compile_service_matches_jax():
 
 def _registered_families(pkg_root: Path) -> set:
     names = set()
-    for mod in ("batcher.py", "slo.py", "admission.py"):
+    for mod in ("verification_service/batcher.py", "verification_service/slo.py",
+                "verification_service/admission.py", "utils/pipeline_profiler.py"):
         names |= set(re.findall(r'metrics\.\w+\(\s*"(verification_scheduler_\w+)"',
-                                (pkg_root / "verification_service" / mod).read_text()))
+                                (pkg_root / mod).read_text()))
     return names
 
 
