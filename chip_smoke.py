@@ -119,6 +119,31 @@ plain torch version on the card. Phases, in order; any failure raises:
    transfer ledger's data movement, the slot ledger's chain time,
    ``stage_latency_summary()`` and ``device_memory_bytes{kind}`` beside
    ``torch.cuda.memory_reserved()``;
+12d. chain (``lighthouse_tpu_torch/beacon_chain``): an interop chain of
+   ``CHAIN_VALIDATORS`` validators at the mainnet preset with altair from
+   genesis, made by the port's ``StateHarness`` (signed by the C library)
+   in a producer process and carried as SSZ bytes. The phase-9 compile
+   service warms ``CHAIN_RUNGS``; a ``BeaconChain`` (``HotColdDB`` over
+   ``MemoryStore``, a ``ManualSlotClock``) is wired as the node wires the
+   device backend: a key table over its pubkey cache (startup sync, the
+   delta listener) and a ``VerificationScheduler`` with the service. Each
+   of ``CHAIN_SLOTS`` slots imports its block through ``process_block``
+   (``verify_now``), verifies the slot's unaggregated attestations in
+   batches of ``CHAIN_GOSSIP_BATCH`` (one signed by the wrong key, which
+   must be the only rejection, ``InvalidSignature``), its four aggregates
+   and its sync messages through the chain's batch verifiers. A second
+   chain, wired the same way in its own process (the key table seam is
+   one a process) with its own compile service warming
+   ``CHAIN_SEGMENT_RUNGS``, imports the same blocks
+   ``CHAIN_SEGMENT_BLOCKS`` at a time through ``process_chain_segment``
+   (the bulk class). A third chain in its own process, on ``cpu-native``,
+   is the oracle: every head root, post-state root and verdict of both
+   must equal its own, and K1-K3 must launch in both. Printed: the block-import wall (median,
+   p90) and the verify's share of it, gossip submit-to-verdict p50/p99
+   per kind, sets per flush, the segment walls, the key table's paths,
+   and a delta sync of one more validator admitted through the pubkey
+   cache (the harness makes no deposits); the phase's lane counts join
+   phase 13's;
 13. kernel timings where the path runs them: each kernel checked again and
    timed (device ms per launch, launches queued back to back behind a
    device sleep, CUDA events) with its plain version and its bound at 1
@@ -156,6 +181,7 @@ device hash-to-curve.
 from __future__ import annotations
 
 import argparse
+import copy
 import gc
 import json
 import statistics
@@ -226,6 +252,25 @@ MESH_HANG_S = 4.0
 # default is 10 s, longer than the pass)
 TELEMETRY_DURATION_S = 3.0
 TELEMETRY_SAMPLE_S = 0.5
+# The chain phase: the port's beacon chain at the mainnet preset with
+# altair from genesis and this many validators (four full 128-wide
+# committees a slot, a 512-member sync committee), over this many slots
+# (the fewest that cross an epoch boundary: at 40 the phase took 349 s on
+# an H100, about 7.5 s a slot of the block chain's host work and gossip
+# verdicts); unaggregated attestations go to the chain's
+# batch verifier this many at a time, and the segment chain imports the
+# blocks this many a process_chain_segment call (one bulk batch each). The
+# compile service warms these rungs first: gossip batches and their
+# bisection halves, the aggregates, a slot's sync messages, a block (raw
+# and with committees collapsed by the key table); the segment chain's
+# own service warms a segment's (its sync committee raw, then collapsed).
+CHAIN_VALIDATORS = 16384
+CHAIN_SLOTS = 33
+CHAIN_GOSSIP_BATCH = 64
+CHAIN_SEGMENT_BLOCKS = 8
+CHAIN_RUNGS = ((64, 1, 8), (16, 128, 16), (512, 1, 1), (8, 512, 8), (8, 1, 8))
+CHAIN_SEGMENT_RUNGS = ((64, 512, 64), (64, 128, 64))
+CHAIN_TIMEOUT_S = 600
 # The MSM phase's point counts: the top MSM rung (a mainnet committee) for
 # G1 with random u64 scalars, and 128 points for the G2 sum.
 MSM_N = 512
@@ -2206,6 +2251,521 @@ def telemetry_phase(svc, pools, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The chain phase: the port's beacon chain on the card
+# ---------------------------------------------------------------------------
+#
+# Five processes, each a stage of one pipeline (the host work of a chain at
+# 16,384 validators is pure Python, so each stage needs its own core): the
+# producer (the harness: blocks and the gossip's plan), the signer (the
+# gossip's signatures, by the C library on eight threads), this process
+# (the block chain on the card), the segment chain (on the card, in its
+# own process) and the oracle (on cpu-native). Only SSZ bytes and plain
+# values cross between them.
+
+
+def chain_spec_and_types():
+    from dataclasses import replace
+
+    from lighthouse_tpu_torch.types import types_for
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.types.preset import MAINNET
+
+    return MAINNET, replace(mainnet_spec(), altair_fork_epoch=0), types_for(MAINNET)
+
+
+def chain_harness(n: int):
+    """The phase's interop chain: mainnet preset, altair from genesis, ``n``
+    validators, signed and keyed by the C library (the oracle's bytes)."""
+    from lighthouse_tpu_torch.testing.harness import (
+        StateHarness, native_pubkey, native_signer)
+
+    preset, spec, _t = chain_spec_and_types()
+    return StateHarness(preset, spec, n, fork_name="altair", signer=native_signer,
+                        pubkey_fn=native_pubkey)
+
+
+def chain_node(genesis_bytes: bytes, n_expected: int):
+    """A ``BeaconChain`` on the genesis state carried across as SSZ bytes:
+    ``HotColdDB`` over ``MemoryStore``, a ``ManualSlotClock``. Returns
+    (chain, clock, types)."""
+    from lighthouse_tpu_torch.beacon_chain import BeaconChain
+    from lighthouse_tpu_torch.state_transition import store_replayer
+    from lighthouse_tpu_torch.store import HotColdDB, MemoryStore
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    preset, spec, t = chain_spec_and_types()
+    genesis = t.state["altair"].decode(genesis_bytes)
+    if len(genesis.validators) != n_expected:
+        raise AssertionError("chain: the genesis state lost validators on the way")
+    db = HotColdDB(MemoryStore(), t, spec, store_replayer(preset, spec))
+    clock = ManualSlotClock(genesis.genesis_time, spec.seconds_per_slot,
+                            preset.SLOTS_PER_EPOCH)
+    return BeaconChain(preset, spec, t, db, genesis, slot_clock=clock), clock, t
+
+
+def slot_attestations(h, slot: int, cache):
+    """``h.attestations_for_slot(h.state, slot)`` (the state at ``slot``)
+    over the epoch's committees computed once: each committee's fully
+    participating attestation, signed by ``h.sign_root``."""
+    from lighthouse_tpu_torch.state_transition.helpers import latest_block_header_root
+    from lighthouse_tpu_torch.types import (
+        DOMAIN_BEACON_ATTESTER, compute_signing_root, get_domain)
+
+    state, t, preset = h.state, h.t, h.preset
+    epoch = slot // preset.SLOTS_PER_EPOCH
+    head = latest_block_header_root(state)
+    start = epoch * preset.SLOTS_PER_EPOCH
+    target = (bytes(state.block_roots[start % preset.SLOTS_PER_HISTORICAL_ROOT])
+              if start < state.slot else head)
+    domain = get_domain(h.spec, state, DOMAIN_BEACON_ATTESTER, epoch)
+    out = []
+    for index in range(cache.committees_per_slot):
+        committee = [int(v) for v in cache.committee(slot, index)]
+        data = t.AttestationData(
+            slot=slot, index=index, beacon_block_root=head,
+            source=state.current_justified_checkpoint,
+            target=t.Checkpoint(epoch=epoch, root=target))
+        root = compute_signing_root(t.AttestationData, data, domain)
+        out.append((committee, root, t.Attestation(
+            aggregation_bits=[True] * len(committee), data=data,
+            signature=h.sign_root([h.keys[v] for v in committee], root))))
+    return out
+
+
+def slot_plan(h, slot: int, block_root: bytes, cache, index_of: dict):
+    """The gossip of ``slot`` on the harness's head state (the slot's block
+    imported), all but its members' signatures: each committee member's
+    unaggregated attestation (one, at a position drawn from the slot, to be
+    signed by another validator's key), each committee's aggregate with its
+    aggregator's proof, every sync committee member's message over the
+    block root. Returns the plan and the full aggregates the next block
+    carries."""
+    from lighthouse_tpu_torch import ssz
+    from lighthouse_tpu_torch.beacon_chain.attestation_verification import _is_aggregator
+    from lighthouse_tpu_torch.crypto.native import native_sign
+    from lighthouse_tpu_torch.types import (
+        DOMAIN_AGGREGATE_AND_PROOF, DOMAIN_SELECTION_PROOF, DOMAIN_SYNC_COMMITTEE,
+        compute_signing_root, get_domain)
+
+    state, t, spec = h.state, h.t, h.spec
+    epoch = slot // h.preset.SLOTS_PER_EPOCH
+    atts = slot_attestations(h, slot, cache)
+    unagg = []  # (attestation data bytes, position, size, secret, root)
+    for committee, root, agg in atts:
+        data = t.AttestationData.encode(agg.data)
+        unagg += [(data, pos, len(committee), h.keys[v].k, root)
+                  for pos, v in enumerate(committee)]
+    bad = (slot * 7919) % len(unagg)
+    unagg[bad] = (*unagg[bad][:3], unagg[bad][3] + 1, unagg[bad][4])  # another key
+    sync_root = compute_signing_root(
+        None, block_root, get_domain(spec, state, DOMAIN_SYNC_COMMITTEE, epoch))
+    members = list(dict.fromkeys(index_of[bytes(pk)]
+                                 for pk in state.current_sync_committee.pubkeys))
+    sel_root = compute_signing_root(
+        ssz.Uint64, slot, get_domain(spec, state, DOMAIN_SELECTION_PROOF, epoch))
+    ap_domain = get_domain(spec, state, DOMAIN_AGGREGATE_AND_PROOF, epoch)
+    signed_aggs = []
+    for committee, _root, agg in atts:
+        for v in committee:
+            proof = native_sign(h.keys[v].k, sel_root)
+            if _is_aggregator(len(committee), proof):
+                break
+        else:
+            raise AssertionError(f"chain: a committee of slot {slot} has no aggregator")
+        msg = t.AggregateAndProof(aggregator_index=v, aggregate=agg, selection_proof=proof)
+        sig = native_sign(h.keys[v].k, compute_signing_root(t.AggregateAndProof, msg,
+                                                            ap_domain))
+        signed_aggs.append(t.SignedAggregateAndProof.encode(
+            t.SignedAggregateAndProof(message=msg, signature=sig)))
+    return {"unaggregated": unagg, "tampered": bad, "aggregates": signed_aggs,
+            "sync": [(v, h.keys[v].k) for v in members], "sync_root": sync_root,
+            "block_root": block_root}, [agg for _c, _r, agg in atts]
+
+
+def chain_producer(outq, n: int, slots: int) -> None:
+    """The producer process: the harness's genesis, then each slot's block
+    (the previous slot's aggregates, a full sync aggregate) and the plan of
+    its gossip, on ``outq``; None at the end."""
+    from lighthouse_tpu_torch.ssz import hash_tree_root
+    from lighthouse_tpu_torch.state_transition.helpers import CommitteeCache
+
+    t0 = time.perf_counter()
+    h = chain_harness(n)
+    outq.put(("genesis", type(h.state).encode(h.state), time.perf_counter() - t0))
+    index_of = {bytes(v.pubkey): i for i, v in enumerate(h.state.validators)}
+    committees, prev = {}, []
+    for slot in range(1, slots + 1):
+        t0 = time.perf_counter()
+        sb = h.produce_block(slot, attestations=prev, full_sync=True)
+        h.process_block(sb, strategy="none")
+        epoch = slot // h.preset.SLOTS_PER_EPOCH
+        if epoch not in committees:
+            committees[epoch] = CommitteeCache(h.preset, h.state, epoch)
+        plan, prev = slot_plan(h, slot, hash_tree_root(sb.message), committees[epoch],
+                               index_of)
+        outq.put(("slot", slot, type(sb).encode(sb), plan, time.perf_counter() - t0))
+    outq.put(None)
+
+
+def chain_signer(inq, outqs) -> None:
+    """The signer process: signs each slot's planned gossip with the C
+    library on eight threads (it releases the GIL) and sends every slot's
+    block and gossip, as SSZ bytes, to each of ``outqs``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lighthouse_tpu_torch.crypto.native import native_sign
+
+    _preset, _spec, t = chain_spec_and_types()
+    genesis = inq.get()
+    for q in outqs:
+        q.put(genesis)
+    with ThreadPoolExecutor(8) as pool:
+        while (msg := inq.get()) is not None:
+            _, slot, block, plan, produce_s = msg
+            t0 = time.perf_counter()
+            jobs = [(sk, root) for _d, _p, _n, sk, root in plan["unaggregated"]]
+            jobs += [(sk, plan["sync_root"]) for _v, sk in plan["sync"]]
+            sigs = list(pool.map(lambda j: native_sign(*j), jobs))
+            unagg = [t.Attestation.encode(t.Attestation(
+                aggregation_bits=[i == pos for i in range(size)],
+                data=t.AttestationData.decode(data), signature=sig))
+                for (data, pos, size, _sk, _r), sig in zip(plan["unaggregated"], sigs)]
+            sync = [t.SyncCommitteeMessage.encode(t.SyncCommitteeMessage(
+                slot=slot, beacon_block_root=plan["block_root"], validator_index=v,
+                signature=sig)) for (v, _sk), sig in zip(plan["sync"], sigs[len(unagg):])]
+            gossip = {"unaggregated": unagg, "aggregates": plan["aggregates"],
+                      "sync": sync, "tampered": plan["tampered"]}
+            out = ("slot", slot, block, gossip, (produce_s, time.perf_counter() - t0))
+            for q in outqs:
+                q.put(out)
+    for q in outqs:
+        q.put(None)
+
+
+def _kinds(results) -> list:
+    return [getattr(r, "kind", "ok") if isinstance(r, Exception) else "ok"
+            for r in results]
+
+
+def chain_slot(chain, clock, t, msg, walls=None) -> dict:
+    """Import one slot's block through ``process_block`` and verify its
+    gossip through the chain's verifiers: the unaggregated attestations in
+    batches of ``CHAIN_GOSSIP_BATCH``, the aggregates, the sync messages.
+    Returns the roots and every verdict (``ok`` or the error kind)."""
+    from lighthouse_tpu_torch.beacon_chain import batch_verify_sync_committee_messages
+    from lighthouse_tpu_torch.ssz import hash_tree_root
+
+    _, slot, block, gossip, _ = msg
+    clock.set_slot(slot)
+    sb = t.signed_block["altair"].decode(block)
+    w0 = time.perf_counter()
+    root = chain.process_block(sb)
+    w1 = time.perf_counter()
+    atts = [t.Attestation.decode(b) for b in gossip["unaggregated"]]
+    unagg = []
+    for i in range(0, len(atts), CHAIN_GOSSIP_BATCH):
+        unagg += _kinds(chain.batch_verify_unaggregated_attestations_for_gossip(
+            atts[i:i + CHAIN_GOSSIP_BATCH]))
+    w2 = time.perf_counter()
+    aggs = _kinds(chain.batch_verify_aggregated_attestations_for_gossip(
+        [t.SignedAggregateAndProof.decode(b) for b in gossip["aggregates"]]))
+    w3 = time.perf_counter()
+    sync = _kinds(batch_verify_sync_committee_messages(
+        chain, [t.SyncCommitteeMessage.decode(b) for b in gossip["sync"]]))
+    w4 = time.perf_counter()
+    if walls is not None:
+        walls.append({"import": w1 - w0, "unaggregated": w2 - w1, "aggregate": w3 - w2,
+                      "sync": w4 - w3})
+    return {"slot": slot, "root": root.hex(), "head": chain.head_block_root.hex(),
+            "state_root": hash_tree_root(chain.head_state).hex(),
+            "unaggregated": unagg, "aggregate": aggs, "sync": sync,
+            "tampered": gossip["tampered"]}
+
+
+def chain_oracle(inq, outq, n: int) -> None:
+    """The oracle process: the same chain on ``cpu-native``, fed the
+    producer's bytes; one result per slot on ``outq``, then None."""
+    from lighthouse_tpu_torch.crypto import backend
+
+    backend.set_backend("cpu-native")
+    _, genesis, _ = inq.get()
+    chain, clock, t = chain_node(genesis, n)
+    while (msg := inq.get()) is not None:
+        outq.put(chain_slot(chain, clock, t, msg))
+    outq.put(None)
+
+
+def wire_chain(chain, svc, dev):
+    """Wire ``chain`` as the node wires the device backend: a key table over
+    its pubkey cache, synced at startup and attached, with the delta
+    listener, and a ``VerificationScheduler`` with the compile service.
+    Returns the table."""
+    from lighthouse_tpu_torch.crypto.device import key_table
+    from lighthouse_tpu_torch.verification_service import VerificationScheduler
+
+    table = key_table.DeviceKeyTable(chain.pubkey_cache, device=dev)
+    table.sync(reason="startup")
+    key_table.set_table(table)
+    listener = lambda _cache, _t=table: _t.sync_or_schedule(reason="delta")  # noqa: E731
+    chain.pubkey_cache.subscribe(listener)
+    chain._key_table_listener = listener
+    chain.device_key_table = table
+    chain.compile_service = svc
+    chain.verification_scheduler = VerificationScheduler(compile_service=svc).start()
+    return table
+
+
+def chain_segment(inq, outq, n: int, device_index: int) -> None:
+    """The segment chain's process, on the card: its own compile service
+    (warming ``CHAIN_SEGMENT_RUNGS``), key table and scheduler; it imports
+    the blocks ``CHAIN_SEGMENT_BLOCKS`` at a time through
+    ``process_chain_segment`` (the scheduler's bulk class) and puts one
+    result on ``outq``: the roots, walls, K1-K3 launches and lanes."""
+    from lighthouse_tpu_torch.compile_service import service as csvc
+    from lighthouse_tpu_torch.crypto.device import kernels, key_table
+    from lighthouse_tpu_torch.ssz import hash_tree_root
+
+    rehearsal = {}
+    if device_index >= 0:
+        dev = torch.device("cuda", device_index)
+        torch.cuda.set_device(dev)
+        kernels.build()
+    else:  # a CPU rehearsal: the C verifier, nothing warmed
+        from lighthouse_tpu_torch.crypto import backend
+
+        dev = torch.device("cpu")
+        backend.set_backend("cpu-native")
+        rehearsal = {"compile_rung_fn": lambda *a, **k: None}
+    svc = csvc.CompileService(rungs=list(CHAIN_SEGMENT_RUNGS), device=dev, **rehearsal)
+    csvc.set_service(svc)
+    svc.start()
+    _, genesis, _ = inq.get()
+    chain, clock, t = chain_node(genesis, n)
+    table = wire_chain(chain, svc, dev)
+    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError("chain segment: the compile service did not warm its rungs")
+    kernels.reset_launches()
+    roots, walls, pending = [], [], []
+    last = False
+    while not last:
+        msg = inq.get()
+        last = msg is None
+        if msg is not None:
+            pending.append(t.signed_block["altair"].decode(msg[2]))
+        if pending and (last or len(pending) == CHAIN_SEGMENT_BLOCKS):
+            clock.set_slot(pending[-1].message.slot)  # a syncing node: the range is past
+            s0 = time.perf_counter()
+            roots += [r.hex() for r in chain.process_chain_segment(pending)]
+            walls.append(time.perf_counter() - s0)
+            pending = []
+    chain.verification_scheduler.stop()
+    status = svc.status()
+    svc.stop()
+    csvc.clear_service(svc)
+    key_table.clear_table(table)
+    outq.put({"roots": roots, "head": chain.head_block_root.hex(),
+              "state_root": hash_tree_root(chain.head_state).hex(), "walls": walls,
+              "launches": dict(kernels.launches),
+              "lane_hist": {k: dict(h) for k, h in kernels.lane_hist.items()},
+              "key_table": table.status()["sets"], "routes": status["cold_routes"]})
+
+
+def extra_validator(state) -> int:
+    """Append one validator with the next interop key to ``state`` (a copy
+    of the head state) and return its index."""
+    from lighthouse_tpu_torch.state_transition.genesis import interop_secret_key
+    from lighthouse_tpu_torch.testing.harness import native_pubkey
+
+    i = len(state.validators)
+    v = copy.deepcopy(state.validators[0])
+    v.pubkey = native_pubkey(interop_secret_key(i))
+    state.validators.append(v)
+    state.balances.append(state.balances[0])
+    return i
+
+
+def chain_phase(svc, dev, slots: int = None, n: int = None) -> dict:
+    """The port's beacon chain on the card (see the module docstring):
+    starts the producer, signer, segment and oracle processes, runs the
+    block chain here, and stops every process it started."""
+    import multiprocessing as mp
+
+    slots = slots or CHAIN_SLOTS
+    n = n or CHAIN_VALIDATORS
+    t_phase = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    planq, to_main, to_oracle, to_segment, from_oracle, from_segment = (
+        ctx.Queue() for _ in range(6))
+    seg_dev = dev.index if dev.type == "cuda" else -1
+    procs = [ctx.Process(target=chain_producer, args=(planq, n, slots), daemon=True),
+             ctx.Process(target=chain_signer, args=(planq, [to_main, to_oracle, to_segment]),
+                         daemon=True),
+             ctx.Process(target=chain_oracle, args=(to_oracle, from_oracle, n), daemon=True),
+             ctx.Process(target=chain_segment, args=(to_segment, from_segment, n, seg_dev),
+                         daemon=True)]
+    for p in procs:
+        p.start()
+    try:
+        out = _chain_phase(svc, dev, slots, n, to_main, from_oracle, from_segment)
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [p.exitcode for p in procs if p.exitcode]
+    if bad:
+        raise AssertionError(f"chain: a helper process failed (exit codes {bad})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"chain phase wall {out['wall_s']:.1f} s; {card_line()}")
+    return out
+
+
+def _chain_phase(svc, dev, slots, n, to_main, from_oracle, from_segment) -> dict:
+    from lighthouse_tpu_torch.crypto.device import kernels, key_table
+
+    log(f"chain: {card_line()}")
+    for rung in CHAIN_RUNGS:
+        svc.request(*rung)
+    _, genesis, genesis_s = to_main.get(timeout=CHAIN_TIMEOUT_S)
+    log(f"chain: genesis of {n} validators built by the producer in {genesis_s:.1f} s "
+        f"({len(genesis)} SSZ bytes)")
+    t0 = time.perf_counter()
+    chain, clock, t = chain_node(genesis, n)
+    log(f"chain: the block chain built in {time.perf_counter() - t0:.1f} s (pubkey cache of "
+        f"{len(chain.pubkey_cache)} keys)")
+    t0 = time.perf_counter()
+    table = wire_chain(chain, svc, dev)
+    log(f"chain: key table synced at startup in {time.perf_counter() - t0:.2f} s "
+        f"({table.status()['validators_resident']} keys resident)")
+    t0 = time.perf_counter()
+    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError("chain: the compile service did not warm the phase's rungs")
+    log(f"chain: rungs {list(CHAIN_RUNGS)} warm ({time.perf_counter() - t0:.1f} s waited)")
+    routes0, graphs0 = _route_counts(svc), _graph_count()
+    mine, walls, now_walls, stage_s = [], [], [], []
+    sched = chain.verification_scheduler
+    verify_now = sched.verify_now
+
+    def timed_verify_now(sets, kind="block"):
+        v0 = time.perf_counter()
+        try:
+            return verify_now(sets, kind)
+        finally:
+            now_walls.append(time.perf_counter() - v0)
+
+    sched.verify_now = timed_verify_now
+    torch.cuda.current_stream().synchronize()
+    kernels.reset_launches()
+    t_loop = time.perf_counter()
+    while (msg := to_main.get(timeout=CHAIN_TIMEOUT_S)) is not None:
+        stage_s.append(msg[4])
+        mine.append(chain_slot(chain, clock, t, msg, walls))
+        r, w = mine[-1], walls[-1]
+        if r["slot"] % 8 == 0 or r["slot"] == slots:
+            log(f"  slot {r['slot']}: head {r['head'][:12]} state {r['state_root'][:12]}; "
+                f"import {w['import']:.2f} s, gossip {w['unaggregated']:.2f} / "
+                f"{w['aggregate']:.2f} / {w['sync']:.2f} s")
+    loop_s = time.perf_counter() - t_loop
+    launches = dict(kernels.launches)
+    hist = {k: dict(h) for k, h in kernels.lane_hist.items()}
+    sched.verify_now = verify_now
+    st, slo = sched.status(), sched.slo_summary()
+    sched.stop()
+    oracle = []
+    while (r := from_oracle.get(timeout=CHAIN_TIMEOUT_S)) is not None:
+        oracle.append(r)
+    seg = from_segment.get(timeout=CHAIN_TIMEOUT_S)
+    if mine != oracle:
+        diff = [(a["slot"], k) for a, b in zip(mine, oracle) for k in a if a[k] != b[k]]
+        raise AssertionError(f"chain: the card's chain differs from cpu-native's: "
+                             f"{diff[:10]} ({len(mine)} against {len(oracle)} slots)")
+    for r in mine:
+        want = ["ok"] * len(r["unaggregated"])
+        want[r["tampered"]] = "InvalidSignature"
+        if (r["unaggregated"] != want or set(r["aggregate"]) != {"ok"}
+                or set(r["sync"]) != {"ok"} or r["head"] != r["root"]):
+            raise AssertionError(f"chain: slot {r['slot']}: wrong verdicts or head")
+    if len(mine) != slots:
+        raise AssertionError(f"chain: {len(mine)} of {slots} slots ran")
+    if (seg["roots"] != [r["root"] for r in oracle] or seg["head"] != oracle[-1]["head"]
+            or seg["state_root"] != oracle[-1]["state_root"]):
+        raise AssertionError("chain: the segment chain's roots differ from cpu-native's")
+    for label, got in (("block chain", launches), ("segment chain", seg["launches"])):
+        missing = [k for k in KERNELS if not got.get(k)]
+        if missing:
+            raise AssertionError(f"chain: {missing} never launched by the {label}")
+    tst = table.status()
+    if KERNELS and tst["sets"]["indexed"] + tst["sets"]["collapsed"] == 0:
+        raise AssertionError("chain: no set resolved on the key table's gathered path")
+    produce = [p for p, _s in stage_s]
+    sign = [s for _p, s in stage_s]
+    log(f"chain: {len(mine)} slots in {loop_s:.1f} s; every head, state root and verdict "
+        f"equal to the cpu-native chain's (one tampered attestation a slot, the only "
+        f"rejection: InvalidSignature); K1-K3 launches {json.dumps(launches)}")
+    log(f"  key table paths (sets): {json.dumps(tst['sets'])}, hit ratio {tst['hit_ratio']}, "
+        f"aggregate inserts {tst['aggregate_inserts']}, hits {tst['aggregate_hits']}")
+    log(f"  producer s a slot: median {statistics.median(produce):.2f}; signer "
+        f"{statistics.median(sign):.2f}")
+    out = {"slots": len(mine), "validators": n, "loop_s": loop_s, "launches": launches,
+           "lane_hist": hist, "key_table": {k: tst[k] for k in ("sets", "hit_ratio",
+                                                                "aggregate_inserts",
+                                                                "aggregate_hits")}}
+    imp = sorted(w["import"] for w in walls)
+    out["block_import"] = {"median_s": statistics.median(imp),
+                           "p90_s": imp[int(0.9 * (len(imp) - 1))],
+                           "verify_share": sum(now_walls) / sum(imp),
+                           "verify_now_median_s": statistics.median(now_walls)}
+    b = out["block_import"]
+    log(f"  block import wall median {b['median_s']:.3f} s, p90 {b['p90_s']:.3f} s; the "
+        f"verify's share {b['verify_share']:.3f} (verify_now median "
+        f"{b['verify_now_median_s']:.3f} s)")
+    flushes = st["planner"]["plans_planned_total"] + st["planner"]["plans_single_total"]
+    n_sets = sum(len(r["unaggregated"]) + 3 * len(r["aggregate"]) + len(r["sync"])
+                 for r in mine)
+    out["gossip"] = {k: {f: v[f] for f in ("count_total", "p50_ms", "p99_ms")}
+                     for k, v in slo["kinds"].items()}
+    out.update(flushes=flushes, sets_per_flush=n_sets / max(1, flushes),
+               bisections=st["bisections_total"],
+               gossip_walls_s={k: statistics.median(w[k] for w in walls)
+                               for k in ("unaggregated", "aggregate", "sync")})
+    for k, v in out["gossip"].items():
+        log(f"  {k}: {v['count_total']} verdicts, submit-to-verdict p50 {v['p50_ms']} ms, "
+            f"p99 {v['p99_ms']} ms")
+    log(f"  {n_sets} gossip sets (and {len(mine)} blocks through verify_now) in "
+        f"{flushes} flushes, {out['sets_per_flush']:.1f} gossip sets a flush; "
+        f"{st['bisections_total']} bisections")
+    out["segment"] = {k: seg[k] for k in ("walls", "launches", "key_table", "routes")}
+    out["segment"]["wall_s"] = sum(seg["walls"])
+    out["segment_lane_hist"] = seg["lane_hist"]
+    log(f"chain segment: {len(seg['roots'])} blocks in {len(seg['walls'])} "
+        f"process_chain_segment calls of {CHAIN_SEGMENT_BLOCKS} in the segment process, "
+        f"{sum(seg['walls']):.1f} s ({[round(s, 2) for s in seg['walls']]}); roots equal "
+        f"to cpu-native's; key table paths {json.dumps(seg['key_table'])}; routes "
+        f"{json.dumps(seg['routes'])}; K1-K3 launches {json.dumps(seg['launches'])}")
+    # a deposit: the harness makes none (its blocks carry no deposits, and
+    # one needs a proof against an eth1 deposit root), so one more
+    # validator is admitted through the cache, as a deposit's import is
+    grown = copy.deepcopy(chain.head_state)
+    extra = extra_validator(grown)
+    e0 = tst["validators_resident"]
+    chain.pubkey_cache.import_new_pubkeys(grown)
+    after = table.status()["validators_resident"]
+    if after != e0 + 1 or len(chain.pubkey_cache) != e0 + 1:
+        raise AssertionError(f"chain: the delta sync did not admit the new key "
+                             f"({e0} -> {after})")
+    key_table.clear_table(table)
+    log(f"chain: one more validator ({extra}) admitted through the pubkey cache: the "
+        f"listener delta-synced the key table ({e0} -> {after} keys)")
+    routes1 = _route_counts(svc)
+    out["routes"] = {k: routes1[k] - routes0[k] for k in routes1}
+    out["graphs_captured"] = _graph_count() - graphs0
+    log(f"chain: routes {json.dumps(out['routes'])}; graphs captured during the phase "
+        f"{out['graphs_captured']}")
+    return out
+
+
 def warm_phase(rng, dev, backend, table, batches, path_rungs, eager, refs) -> dict:
     """Drop the graphs the earlier phases captured on first use, start a
     compile service over the batches' rungs then ``DEFAULT_RUNGS`` (the
@@ -2286,6 +2846,7 @@ def main() -> int:
                          "(--quick's lane counts and the earlier shapes) and print "
                          "them as one JSON line: to compare two trees in one run")
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2487,6 +3048,18 @@ def main() -> int:
     print(json.dumps({"telemetry": tel}, default=str), flush=True)
     log(card)
 
+    log(f"phase 12d chain: the port's beacon chain ({CHAIN_VALIDATORS} validators, mainnet "
+        f"preset, altair) imports {CHAIN_SLOTS} slots of blocks and verifies their gossip "
+        "through the scheduler, the phase-9 compile service and a key table on the card; "
+        "a segment chain imports the same blocks; a cpu-native chain is the oracle")
+    prev_table = key_table.get_table()
+    chain = chain_phase(warm["service"], dev)
+    key_table.set_table(prev_table)
+    hists["chain"] = chain.pop("lane_hist")
+    hists["chain segment"] = chain.pop("segment_lane_hist")
+    print(json.dumps({"chain": chain}, default=str), flush=True)
+    log(card)
+
     log("phase 13 every kernel checked against its plain version and timed at "
         "each path's lane counts (device ms per launch, launches queued back to back)")
     gc.collect()  # the engine phase's garbage, before the timed queueing
@@ -2542,6 +3115,7 @@ def main() -> int:
             "bound_ms_per_verify": per_verify[k]["bound_ms"],
             "timings": timings[k],
         })
+    log(f"script wall {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

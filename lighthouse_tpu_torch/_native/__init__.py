@@ -1,14 +1,18 @@
-"""The C BLS12-381 verifier (``bls12381.c``, a byte-for-byte copy of the
-JAX package's ``_native`` source), built with the system C compiler at
-first use and loaded through ``ctypes``.
+"""The port's C sources, byte-for-byte copies of the JAX package's
+``_native`` sources but for comments: the BLS12-381 verifier
+(``bls12381.c``, backend ``cpu-native``) and the batched SHA-256 of the
+merkleization (``sha256.c``). Each is built with the system C compiler
+at first use and loaded through ``ctypes``.
 
 Nothing is built at import. :func:`build_and_load` compiles
 ``<stem>.c`` into ``lighthouse_tpu_torch/_build/native-<digest>/`` (the
 digest covers the source and its header, so an edited source rebuilds),
 writing to a per-process temporary file that ``os.replace`` moves into
 place: several processes building at once never load a half-written
-library. A missing compiler or a failed build raises: the port has no
-pure-Python pairing to fall back to.
+library. A missing compiler or a failed build raises
+:class:`NativeBuildError`; the callers decide what runs instead (the
+hashing falls back to ``hashlib``, the compile service's shed fallback to
+the pure-Python oracle).
 """
 
 from __future__ import annotations

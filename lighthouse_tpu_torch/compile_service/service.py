@@ -23,9 +23,9 @@ module keeps that off the hot path:
   :meth:`CompileService.decide_flush` and serves a ``shed`` one through
   :meth:`CompileService.fallback_verify`, a synchronous verify on the C
   verifier (``crypto/native.py``, backend ``cpu-native``) while the
-  worker captures the rung. A cold rung never stalls a flush. The JAX
-  service falls back further, to its pure-Python pairing, when the C
-  build fails; the port has no host pairing, so a failed build raises.
+  worker captures the rung. A cold rung never stalls a flush. When the C
+  build fails it falls back further, to the pure-Python oracle
+  (``crypto/backend.CpuBackend``), as the JAX service does.
 * **the mesh ladder**: with a device mesh attached at :meth:`start`
   (``crypto/device/mesh.py``), the work items are (rung, shard) over
   every shard, headline rungs first; the registry, routing and warmth
@@ -304,7 +304,8 @@ class CompileService:
     capture the rung's stage graphs on ``device`` through
     :func:`lowering.warm_staged` (``cuda`` unless the caller asks for the
     CPU, where nothing is captured and the stages run once eagerly) and
-    verify shed flushes on the C verifier (``cpu-native``)."""
+    verify shed flushes on the C verifier (``cpu-native``), or on the
+    pure-Python oracle when the C build fails."""
 
     def __init__(
         self,
@@ -586,12 +587,13 @@ class CompileService:
     # -- fallback ---------------------------------------------------------
 
     def fallback_verify(self, sets) -> bool:
-        """Synchronous host verification of a shed flush on the C
-        verifier (``cpu-native``), verdict-identical to the device call,
-        including the device backend's infinity pre-screens; exceptions
-        propagate like the direct call's would (the scheduler's bisection
-        delivers them to exactly the leaf submission that caused them).
-        A failed C build raises: there is no further fallback."""
+        """Synchronous host verification of a shed flush: the C verifier
+        (``cpu-native``) when it builds, the pure-Python oracle
+        (``backend.CpuBackend``) otherwise. Verdict-identical to the
+        device call, including the device backend's infinity
+        pre-screens; exceptions propagate like the direct call's would
+        (the scheduler's bisection delivers them to exactly the leaf
+        submission that caused them)."""
         t0 = time.perf_counter()
         try:
             with tracing.span(
@@ -640,9 +642,12 @@ class CompileService:
 
     def _fallback_backend_inst(self):
         if self._fallback_backend is None:
-            from ..crypto.native import NativeBackend
+            from ..crypto import backend as _backend
 
-            self._fallback_backend = NativeBackend()
+            try:
+                self._fallback_backend = _backend._REGISTRY["cpu-native"]()
+            except Exception:  # no C toolchain: the oracle is always there
+                self._fallback_backend = _backend.CpuBackend()
         return self._fallback_backend
 
     # -- warmth notification ---------------------------------------------

@@ -10,16 +10,20 @@ Deserialization follows the consensus rules:
   "empty" (infinity) signature. Decompression is lazy: the device backend
   ships the compressed x to the card and decompresses there.
 
-There is one backend, :class:`~.device.bls.CudaBackend`, and no registry:
-every verifying call builds one on the device the caller names (``cuda``
-by default).
+A verifying call that names a ``device`` builds a
+:class:`~.device.bls.CudaBackend` there. A call without one goes through
+the backend registry (``crypto/backend.py``: ``cuda``, the default, ``cpu``,
+``cpu-native`` and ``fake``), as every call of the JAX package's API does.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence
 
+from . import backend as _backend_mod
 from .cpu.curve import G1Point, G2Point, g1_generator
+from .cpu.fields import Fq
 from .cpu.hash_to_curve import hash_to_g2
 from .params import P as P_MOD, DST, PUBLIC_KEY_BYTES, R, SECRET_KEY_BYTES, SIGNATURE_BYTES
 
@@ -43,6 +47,14 @@ class PublicKey:
     def deserialize(cls, data: bytes) -> "PublicKey":
         if len(data) != PUBLIC_KEY_BYTES:
             raise BlsError(f"invalid pubkey length {len(data)}")
+        # Fast path through the C library when a toolchain exists (a
+        # pure-Python subgroup check is ~0.2 s a key: a mainnet registry
+        # would take hours to admit), as the JAX package's SecretKey
+        # does for its signer; a key the C check refuses takes the oracle
+        # path below, which raises the oracle's error.
+        xy = _native_pubkey_xy(bytes(data))
+        if xy is not None:
+            return cls(G1Point(Fq(xy[0]), Fq(xy[1])), bytes(data))
         try:
             point = G1Point.decompress(data)
         except ValueError as e:
@@ -66,6 +78,22 @@ class PublicKey:
 
     def __repr__(self):
         return f"PublicKey(0x{self.serialize().hex()})"
+
+
+def _native_pubkey_xy(data: bytes):
+    """(x, y) of a valid compressed G1 public key from the C library's
+    KeyValidate (decompress, on-curve, subgroup, not infinity); None when
+    the key is invalid or the library cannot be built."""
+    try:
+        from .native import lib
+
+        out = (ctypes.c_uint8 * 96)()
+        if lib().bls_g1_pubkey_check(data, out) != 1:
+            return None
+    except Exception:
+        return None
+    raw = bytes(out)
+    return int.from_bytes(raw[:48], "big"), int.from_bytes(raw[48:], "big")
 
 
 def parse_compressed_g2_x(data: bytes) -> tuple[int, int, bool]:
@@ -148,7 +176,7 @@ class Signature:
             return bytes(self._bytes) == INFINITY_SIGNATURE
         return self._point is None or self._point.is_infinity()
 
-    def verify(self, pk: PublicKey, message: bytes, device: str = "cuda") -> bool:
+    def verify(self, pk: PublicKey, message: bytes, device=None) -> bool:
         return _backend(device).verify(pk.point, message, self.point_or_infinity())
 
     def __eq__(self, o):
@@ -180,7 +208,7 @@ class AggregateSignature(Signature):
         self._bytes = None
 
     def fast_aggregate_verify(
-        self, message: bytes, pks: Sequence[PublicKey], device: str = "cuda"
+        self, message: bytes, pks: Sequence[PublicKey], device=None
     ) -> bool:
         if not pks:
             return False
@@ -190,7 +218,7 @@ class AggregateSignature(Signature):
 
     def aggregate_verify(
         self, messages: Sequence[bytes], pks: Sequence[PublicKey],
-        device: str = "cuda",
+        device=None,
     ) -> bool:
         if not pks or len(pks) != len(messages):
             return False
@@ -271,29 +299,39 @@ class SignatureSet:
     ) -> "SignatureSet":
         return cls(signature, signing_keys, message, signing_indices)
 
-    def verify(self, device: str = "cuda") -> bool:
+    def verify(self, device=None) -> bool:
         """Verify just this set (fast_aggregate_verify)."""
         return AggregateSignature(
             self.signature.point, self.signature.serialize()
         ).fast_aggregate_verify(self.message, self.signing_keys, device=device)
 
 
-def _backend(device: str):
+def _backend(device):
+    """The backend a verifying call runs on: a ``CudaBackend`` on the
+    device the caller names, else the registry's active one."""
+    if device is None:
+        return _backend_mod.active()
     from .device.bls import CudaBackend
 
     return CudaBackend(device=device)
 
 
-def verify_signature_sets(
-    sets: Sequence[SignatureSet], device: str = "cuda"
-) -> bool:
-    """Batch-verify on the card; ``True`` iff every set verifies (modulo
-    the standard 2^-64 random-linear-combination soundness).
+def verify_signature_sets(sets: Sequence[SignatureSet], device=None) -> bool:
+    """Batch-verify; ``True`` iff every set verifies (modulo the standard
+    2^-64 random-linear-combination soundness).
 
-    The backend receives the Signature objects, so the compressed bytes
-    go to the device and are decompressed there. A malformed encoding is
-    an ordinary invalid outcome, never an exception."""
+    The backend receives the Signature objects, so the device backend
+    ships the compressed bytes and decompresses on the card. A malformed
+    encoding is an ordinary invalid outcome, never an exception. Without
+    a ``device`` the registry's backend decides, after the JAX API's
+    pre-screens: an empty batch, and a batch with an "empty" (infinity)
+    signature, fail before reaching any backend (reference:
+    ``blst.rs:77-83``)."""
     sets = list(sets)
+    if device is None and (
+        not sets or any(s.signature.is_infinity() for s in sets)
+    ):
+        return False
     prepared = [
         (s.signature, [pk.point for pk in s.signing_keys], s.message)
         for s in sets

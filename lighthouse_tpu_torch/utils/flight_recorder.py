@@ -54,6 +54,8 @@ DUMP_PREFIX = "lighthouse_tpu_flight_"
 # port, snake_case. The JAX package's other kinds arrive with their
 # producers.
 EVENT_KINDS = (
+    "attestation_rejected",   # beacon_chain/attestation_verification.py
+    "block_rejected",         # beacon_chain/block_verification.py
     "bls_stage_verify",       # crypto/device/bls.py, one per staged verify
     "bulk_resume",            # verification_service/admission.py, excursion end
     "bulk_throttle",          # verification_service/admission.py, bulk paused
@@ -66,6 +68,7 @@ EVENT_KINDS = (
     "fault_injected",         # utils/fault_injection.py, one per injected fault
     "key_table_reset",        # crypto/device/key_table.py, agg region recycle
     "key_table_sync",         # crypto/device/key_table.py, startup/delta rows
+    "log",                    # utils/logging.py, warn/error/crit lines
     "pipeline_flush",         # utils/pipeline_profiler.py, one per flush
     "scheduler_bisection",    # verification_service/batcher.py, per split
     "scheduler_flush",        # verification_service/batcher.py, per batch
@@ -76,6 +79,7 @@ EVENT_KINDS = (
     "shard_probation",        # crypto/device/mesh.py, probation entry/failed probe
     "shard_recovered",        # crypto/device/mesh.py, chip re-admitted to axis
     "slo_burn",               # verification_service/slo.py, budget burn alert
+    "sync_rejected",          # beacon_chain/sync_committee_verification.py
     "transfer_ledger",        # utils/transfer_ledger.py, one per verify
     "watchdog_reaped",        # verification_service/batcher.py, hung dispatch
 )

@@ -34,7 +34,7 @@ def _imports(tree):
 
 def test_no_forbidden_import_statements():
     sources = sorted(PKG.rglob("*.py"))
-    assert len(sources) >= 18
+    assert len(sources) >= 90
     names = {str(p.relative_to(PKG)) for p in sources}
     assert {"crypto/device/key_table.py", "crypto/device/msm.py",
             "crypto/device/graphs.py", "compile_service/service.py",
@@ -45,7 +45,15 @@ def test_no_forbidden_import_statements():
             "utils/flight_recorder.py", "crypto/native.py", "_native/__init__.py",
             "crypto/device/mesh.py", "utils/fault_injection.py",
             "utils/slot_ledger.py", "utils/transfer_ledger.py",
-            "utils/pipeline_profiler.py", "utils/timeseries.py"} <= names
+            "utils/pipeline_profiler.py", "utils/timeseries.py",
+            "types/containers.py", "types/chain_spec.py", "ssz/core.py", "ssz/sha256.py",
+            "ssz/cache.py", "utils/logging.py", "crypto/backend.py", "crypto/cpu/bls.py",
+            "crypto/cpu/pairing.py", "state_transition/block.py",
+            "state_transition/signature_sets.py", "state_transition/state/epoch.py",
+            "fork_choice/proto_array.py", "fork_choice/persistence.py", "store/kv.py",
+            "store/hot_cold.py", "beacon_chain/chain.py", "beacon_chain/pubkey_cache.py",
+            "beacon_chain/attestation_verification.py",
+            "beacon_chain/sync_committee_verification.py", "testing/harness.py"} <= names
     bad = []
     for path in sources:
         for name in _imports(ast.parse(path.read_text(), str(path))):
@@ -80,7 +88,11 @@ print(json.dumps(added))
                 "verification_service.traffic", "crypto.native", "_native",
                 "crypto.device.mesh", "utils.fault_injection",
                 "utils.slot_ledger", "utils.transfer_ledger",
-                "utils.pipeline_profiler", "utils.timeseries"):
+                "utils.pipeline_profiler", "utils.timeseries", "types.containers",
+                "ssz.core", "ssz.sha256", "utils.logging", "crypto.backend", "crypto.cpu.bls",
+                "crypto.cpu.pairing", "state_transition.block", "state_transition.epoch",
+                "fork_choice.fork_choice", "store.hot_cold", "beacon_chain.chain",
+                "beacon_chain.block_verification", "testing.harness"):
         assert f"lighthouse_tpu_torch.{mod}" in ported
     leaked = [m for m in added if _forbidden(m) or m.startswith("jax")]
     assert not leaked, leaked

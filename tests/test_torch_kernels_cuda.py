@@ -533,3 +533,113 @@ def test_two_shard_mesh_on_one_card_loses_recovers_and_resplits(dev):
         mesh.clear_mesh(m2)
         svc.stop()
         csvc.clear_service(svc)
+
+
+# ---------------------------------------------------------------------------
+# The beacon chain on the card
+# ---------------------------------------------------------------------------
+
+def _minimal_chain(genesis: bytes):
+    from lighthouse_tpu_torch.beacon_chain import BeaconChain
+    from lighthouse_tpu_torch.state_transition import store_replayer
+    from lighthouse_tpu_torch.store import HotColdDB, MemoryStore
+    from lighthouse_tpu_torch.types import types_for
+    from lighthouse_tpu_torch.types.chain_spec import minimal_spec
+    from lighthouse_tpu_torch.types.preset import MINIMAL
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    t, spec = types_for(MINIMAL), minimal_spec()
+    state = t.state["phase0"].decode(genesis)
+    clock = ManualSlotClock(state.genesis_time, spec.seconds_per_slot, MINIMAL.SLOTS_PER_EPOCH)
+    db = HotColdDB(MemoryStore(), t, spec, store_replayer(MINIMAL, spec))
+    return BeaconChain(MINIMAL, spec, t, db, state, slot_clock=clock), clock, t
+
+
+def _single_attestations(h, slot: int) -> list:
+    """Each committee member's own attestation of ``slot`` on the harness's
+    head state, as bytes; the last one signed by the next validator's key."""
+    from lighthouse_tpu_torch.state_transition.helpers import CommitteeCache
+    from lighthouse_tpu_torch.testing.harness import native_signer
+    from lighthouse_tpu_torch.types import DOMAIN_BEACON_ATTESTER, compute_signing_root, get_domain
+
+    t, state = h.t, h.state
+    epoch = slot // h.preset.SLOTS_PER_EPOCH
+    cache = CommitteeCache(h.preset, state, epoch)
+    domain = get_domain(h.spec, state, DOMAIN_BEACON_ATTESTER, epoch)
+    out = []
+    for agg in h.attestations_for_slot(state, slot):
+        root = compute_signing_root(t.AttestationData, agg.data, domain)
+        committee = [int(v) for v in cache.committee(slot, agg.data.index)]
+        for pos, v in enumerate(committee):
+            out.append([[i == pos for i in range(len(committee))], agg.data, v, root])
+    out[-1][2] += 1
+    return [t.Attestation.encode(t.Attestation(
+        aggregation_bits=bits, data=data, signature=native_signer([h.keys[v]], root)))
+        for bits, data, v, root in out]
+
+
+def test_minimal_chain_imports_and_verifies_gossip_on_card_with_the_scheduler(dev):
+    """A four-slot chain (minimal preset, 64 validators, signed by the C
+    library) wired as the node wires the card: a key table over its pubkey
+    cache with the delta listener, a compile service and the scheduler,
+    the registry's default backend (``cuda``). Each block goes through
+    ``process_block``; the last slot's unaggregated attestations, one signed
+    by the wrong key, through the batch verifier. Head roots, state roots
+    and verdicts equal a ``cpu-native`` chain's; K1-K3 launch."""
+    from lighthouse_tpu_torch.beacon_chain import AttestationError
+    from lighthouse_tpu_torch.compile_service import service as csvc
+    from lighthouse_tpu_torch.crypto import backend
+    from lighthouse_tpu_torch.crypto.device import key_table
+    from lighthouse_tpu_torch.ssz import hash_tree_root
+    from lighthouse_tpu_torch.testing.harness import StateHarness, native_pubkey, native_signer
+    from lighthouse_tpu_torch.types.chain_spec import minimal_spec
+    from lighthouse_tpu_torch.types.preset import MINIMAL
+    from lighthouse_tpu_torch.verification_service import VerificationScheduler
+
+    h = StateHarness(MINIMAL, minimal_spec(), 64, signer=native_signer, pubkey_fn=native_pubkey)
+    genesis = type(h.state).encode(h.state)
+    blocks = [type(b).encode(b) for b in h.extend_chain(4, strategy="none")]
+    singles = _single_attestations(h, 4)
+    saved = (backend._active, backend._active_name)
+    results = {}
+    svc = csvc.CompileService(rungs=[(4, 4, 4), (8, 1, 2)], device=dev)
+    csvc.set_service(svc)
+    svc.start()
+    try:
+        assert svc.wait_idle(timeout=600)
+        for name in ("cpu-native", "cuda"):
+            backend.set_backend(name)
+            chain, clock, t = _minimal_chain(genesis)
+            if name == "cuda":
+                table = key_table.DeviceKeyTable(chain.pubkey_cache, device=dev)
+                table.sync(reason="startup")
+                key_table.set_table(table)
+                chain.pubkey_cache.subscribe(lambda _c, _t=table: _t.sync_or_schedule("delta"))
+                chain.verification_scheduler = VerificationScheduler(compile_service=svc).start()
+                kernels.reset_launches()
+            roots = []
+            for data in blocks:
+                sb = t.signed_block["phase0"].decode(data)
+                clock.set_slot(sb.message.slot)
+                roots.append((chain.process_block(sb), hash_tree_root(chain.head_state)))
+            got = chain.batch_verify_unaggregated_attestations_for_gossip(
+                [t.Attestation.decode(b) for b in singles])
+            results[name] = (roots, ["ok" if not isinstance(r, AttestationError) else r.kind
+                                     for r in got])
+        launches = dict(kernels.launches)
+        chain.verification_scheduler.stop()
+        sets = table.status()["sets"]
+        key_table.clear_table(table)
+    finally:
+        backend._active, backend._active_name = saved
+        svc.stop()
+        csvc.clear_service(svc)
+    assert results["cuda"] == results["cpu-native"]
+    roots, verdicts = results["cuda"]
+    assert [r for r, _s in roots] == [hash_tree_root(t.signed_block["phase0"].decode(b).message)
+                                      for b in blocks]
+    assert verdicts == ["ok"] * (len(singles) - 1) + ["InvalidSignature"]
+    assert all(launches[k] > 0 for k in launches)
+    assert sets["indexed"] + sets["collapsed"] > 0
+    print(f"chain on the card: launches {launches}, key table sets {sets}, routes "
+          f"{svc.status()['cold_routes']}")

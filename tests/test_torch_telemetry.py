@@ -14,8 +14,8 @@ is prose and is left out of the summary compared.
 
 Also here: every metric family the port registers exists in the JAX
 package with the same type, label names and buckets; the JAX families
-the port does not register are all produced by modules ROADMAP item 15
-(node wiring) or later items take, each named with its reason; the
+the port does not register are all produced by modules ROADMAP items
+15b and 15c (the rest of the node) take, each named with its reason; the
 port's ``gather()`` parses as Prometheus text; and the disabled hooks
 cost one global check.
 """
@@ -394,24 +394,18 @@ def test_slot_ledger_conserves_an_attribution_older_than_every_card():
 # the reason it waits. Every JAX family the port lacks must come from one
 # of these modules.
 NOT_PORTED = {
-    "beacon_chain/attestation_verification.py": "the chain runtime: item 15 (node wiring)",
-    "beacon_chain/block_verification.py": "the chain runtime: item 15",
-    "beacon_chain/chain.py": "the chain runtime: item 15",
-    "beacon_chain/validator_monitor.py": "the chain runtime: item 15",
-    "beacon_processor/processor.py": "the work queues in front of the scheduler: item 15",
-    "duty_lookahead/__init__.py": "the committee precompute's caller is the node: item 15",
-    "http_api/server.py": "the HTTP surface: item 15",
-    "network/peer_manager.py": "networking: item 15",
-    "network/service.py": "networking and sync: item 15",
-    "operation_pool/device_agg.py": "the operation pool: item 15",
-    "operation_pool/pool.py": "the operation pool: item 15",
-    "slasher/slasher.py": "the slasher: item 15",
-    "store/hot_cold.py": "storage: item 15",
-    "utils/logging.py": "the node's structured log: item 15",
-    "utils/monitoring.py": "the monitoring push loop: item 15",
-    "utils/watchtower.py": "the incident detectors read the node's series: item 15",
-    "validator_client/preparation_service.py": "the validator client: item 15",
-    "validator_client/services.py": "the validator client: item 15",
+    "beacon_processor/processor.py": "the work queues in front of the scheduler: item 15b",
+    "duty_lookahead/__init__.py": "the committee precompute's caller is the node: item 15b",
+    "http_api/server.py": "the HTTP surface: item 15b",
+    "network/peer_manager.py": "networking: item 15c",
+    "network/service.py": "networking and sync: item 15c",
+    "operation_pool/device_agg.py": "the operation pool: item 15b",
+    "operation_pool/pool.py": "the operation pool: item 15b",
+    "slasher/slasher.py": "the slasher: item 15c",
+    "utils/monitoring.py": "the monitoring push loop: item 15b",
+    "utils/watchtower.py": "the incident detectors read the node's series: item 15b",
+    "validator_client/preparation_service.py": "the validator client: item 15c",
+    "validator_client/services.py": "the validator client: item 15c",
 }
 
 
@@ -458,6 +452,14 @@ def test_every_port_family_has_the_jax_type_and_labels():
             "device_memory_bytes", "capacity_headroom_ratio",
             "compile_service_compile_seconds", "bls_device_key_table_sets_total",
             "slot_ledger_events_total"} <= set(torch_sources)
+    # and the chain's: block import, head, gossip verification,
+    # the store, the validator monitor and the structured log
+    assert {"block_processing_seconds", "head_recompute_total",
+            "beacon_block_observed_to_head_seconds"} <= set(torch_sources)
+    assert {mod for name, mod in torch_sources.items()} >= {
+        "beacon_chain/attestation_verification.py", "beacon_chain/block_verification.py",
+        "beacon_chain/chain.py", "beacon_chain/validator_monitor.py", "store/hot_cold.py",
+        "utils/logging.py"}
 
 
 _LINE = re.compile(
