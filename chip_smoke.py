@@ -35,8 +35,10 @@ plain torch version on the card. Phases, in order; any failure raises:
    default ``agg_min_repeats`` (2): the second sighting pays the host
    sums (seconds printed) and ships K = 1, the third hits; a poisoned
    signature over the collapsed rows -> False;
-8. msm: ``device_msm_g1`` at N = 512 with random u64 scalars and
-   ``device_sum_g2`` at N = 128 equal to the host fold; one committee's
+8. msm: ``device_msm_g1`` at N = 512 with random u64 scalars equal to
+   the host reference (registry row i is [i + 1]G, so the MSM is the C
+   library's [sum s_i (i + 1)]G) and ``device_sum_g2`` at N = 128 equal
+   to the host fold; one committee's
    all-ones MSM equal to the table's host sum; a committee inserted with
    ``insert_precomputed`` ships K = 1 at its first sighting -> True;
 9. warm dispatch: the graphs captured on first use in phases 3-8 are
@@ -119,31 +121,54 @@ plain torch version on the card. Phases, in order; any failure raises:
    transfer ledger's data movement, the slot ledger's chain time,
    ``stage_latency_summary()`` and ``device_memory_bytes{kind}`` beside
    ``torch.cuda.memory_reserved()``;
-12d. chain (``lighthouse_tpu_torch/beacon_chain``): an interop chain of
-   ``CHAIN_VALIDATORS`` validators at the mainnet preset with altair from
-   genesis, made by the port's ``StateHarness`` (signed by the C library)
-   in a producer process and carried as SSZ bytes. The phase-9 compile
-   service warms ``CHAIN_RUNGS``; a ``BeaconChain`` (``HotColdDB`` over
-   ``MemoryStore``, a ``ManualSlotClock``) is wired as the node wires the
-   device backend: a key table over its pubkey cache (startup sync, the
-   delta listener) and a ``VerificationScheduler`` with the service. Each
-   of ``CHAIN_SLOTS`` slots imports its block through ``process_block``
-   (``verify_now``), verifies the slot's unaggregated attestations in
-   batches of ``CHAIN_GOSSIP_BATCH`` (one signed by the wrong key, which
-   must be the only rejection, ``InvalidSignature``), its four aggregates
-   and its sync messages through the chain's batch verifiers. A second
-   chain, wired the same way in its own process (the key table seam is
-   one a process) with its own compile service warming
-   ``CHAIN_SEGMENT_RUNGS``, imports the same blocks
-   ``CHAIN_SEGMENT_BLOCKS`` at a time through ``process_chain_segment``
-   (the bulk class). A third chain in its own process, on ``cpu-native``,
-   is the oracle: every head root, post-state root and verdict of both
-   must equal its own, and K1-K3 must launch in both. Printed: the block-import wall (median,
-   p90) and the verify's share of it, gossip submit-to-verdict p50/p99
-   per kind, sets per flush, the segment walls, the key table's paths,
-   and a delta sync of one more validator admitted through the pubkey
-   cache (the harness makes no deposits); the phase's lane counts join
-   phase 13's;
+12d. chain (``lighthouse_tpu_torch/beacon_chain``, built by the port's
+   ``client.ClientBuilder``): an interop chain of ``CHAIN_VALIDATORS``
+   validators at the mainnet preset with altair from genesis, made by the
+   port's ``StateHarness`` (signed by the C library) in a producer
+   process and carried as SSZ bytes. The block chain's node here has the
+   ``cuda`` backend with the JAX builder's wiring in its order: the
+   operation pool's ``DeviceAggregator`` (``device_msm``), a mesh, a key
+   table over its pubkey cache (startup sync, the delta listener), the
+   duty lookahead, its own compile service warming ``CHAIN_RUNGS`` and
+   the MSM ladder, a ``VerificationScheduler``, the beacon processor and
+   HTTP on a free port; its ``ManualSlotClock`` is the process clock.
+   Each of ``CHAIN_SLOTS`` slots imports its block through
+   ``process_block`` (``verify_now``), verifies the slot's unaggregated
+   attestations in batches of ``CHAIN_GOSSIP_BATCH`` (one signed by the
+   wrong key, which must be the only rejection, ``InvalidSignature``)
+   and its four aggregates, and hands its sync messages to the beacon
+   processor, which verifies them and fills the operation pool. The
+   lookahead must warm all 128 committees of ``CHAIN_LOOKAHEAD_EPOCH``
+   through the card before its first slot, whose four aggregates must
+   then collapse on their first sighting. At ``CHAIN_CONTRIB_SLOTS`` each
+   subcommittee's sync contribution is asked for over HTTP (a 128-point
+   G2 sum on the card), at ``CHAIN_PRODUCE_SLOTS`` a block is produced
+   over HTTP (a 512-point sync aggregate; not imported), and every pool
+   sum must take the device path. A second node, built the same way in
+   its own process (the key table seam is one a process) with its own
+   compile service warming ``CHAIN_SEGMENT_RUNGS``, imports the same
+   blocks ``CHAIN_SEGMENT_BLOCKS`` at a time through
+   ``process_chain_segment`` (the bulk class). A third node in its own
+   process, on ``cpu-native`` (its pool has no aggregator: every sum is
+   the host fold), is the oracle: every head root, post-state root,
+   verdict, contribution and produced block of both must equal its own,
+   each produced sync aggregate must verify there, and K1-K3 must launch
+   in both card nodes. Printed: the block-import wall (median, p90) and
+   the verify's share of it, gossip submit-to-verdict p50/p99 per kind,
+   sets per flush, the segment walls, the key table's paths, the
+   lookahead's epoch wall, the pool's sums, a delta sync of one more
+   validator admitted through the pubkey cache (the harness makes no
+   deposits), and the node's two device callers (the lookahead's MSM at
+   N=128, the pool's G2 sums at 128 and 512 points) called once more
+   alone against the host fold with their launches; the phase's lane
+   counts join phase 13's;
+12e. the entry point: ``python -m lighthouse_tpu_torch bn --bls-backend
+   cuda`` at the minimal preset (64 interop validators, HTTP on a free
+   port, a data directory) in a subprocess must come up, answer
+   ``/eth/v1/node/health``, ``/lighthouse/health`` and ``/metrics``
+   (Prometheus text), warm its one compile rung (``BN_RUNG``) and exit
+   with 0 within ``BN_EXIT_S`` of SIGTERM, leaving no lock file, all
+   within ``BN_BUDGET_S``;
 13. kernel timings where the path runs them: each kernel checked again and
    timed (device ms per launch, launches queued back to back behind a
    device sleep, CUDA events) with its plain version and its bound at 1
@@ -169,8 +194,8 @@ seconds and the bytes it copied to the card.
 The counts of kernel launches (and the lanes they carry) are set to 0
 just before each verify and read just after it. The kernels line reports
 the launches of the valid block-batch verify. Keys and messages are made
-from ``--seed``; the host signer (pure Python) is independent of the
-device hash-to-curve.
+from ``--seed``; the host signers (pure Python for single signers, the C
+library for committees) are independent of the device hash-to-curve.
 
     python3 chip_smoke.py            # the full check (one card)
     python3 chip_smoke.py --quick    # build, kernel checks and timings, graphs, tiny verifies,
@@ -184,6 +209,7 @@ import argparse
 import copy
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -231,7 +257,7 @@ ENGINE_TRIPLES = (("toeplitz_int32", "composed", "composed"),
 # rates (40 unaggregated, 12 aggregates, 6 sync messages per second) for
 # this many seconds; its pools: committees of 8 signers (one attestation
 # message each) and sync-committee signers over one block root.
-SERVE_DURATION_S = 8.0
+SERVE_DURATION_S = 6.0
 SERVE_COMMITTEES = 7
 SERVE_SYNC = 16
 # the shed pass's second compile service warms only this rung: the
@@ -271,6 +297,22 @@ CHAIN_SEGMENT_BLOCKS = 8
 CHAIN_RUNGS = ((64, 1, 8), (16, 128, 16), (512, 1, 1), (8, 512, 8), (8, 1, 8))
 CHAIN_SEGMENT_RUNGS = ((64, 512, 64), (64, 128, 64))
 CHAIN_TIMEOUT_S = 600
+# The node around the chain: the committees a slot at CHAIN_VALIDATORS
+# (each 128 wide), the epoch whose committees the duty lookahead must warm
+# on the card (past the halfway trigger of the epoch before) so that its
+# first slot's aggregates collapse on their first sighting, the slots
+# whose four sync contributions are asked for over HTTP (128-point G2
+# sums in the pool) and the slots a block is produced for over HTTP (a
+# 512-point sync aggregate).
+CHAIN_COMMITTEES_A_SLOT = 4
+CHAIN_LOOKAHEAD_EPOCH = 1
+CHAIN_CONTRIB_SLOTS = (8, 16, 24, 32)
+CHAIN_PRODUCE_SLOTS = (17, 33)
+# Phase 12e: the bn process's one compile rung, its budget and the time it
+# has to exit after SIGTERM.
+BN_RUNG = (4, 1, 1)
+BN_BUDGET_S = 60.0
+BN_EXIT_S = 10.0
 # The MSM phase's point counts: the top MSM rung (a mainnet committee) for
 # G1 with random u64 scalars, and 128 points for the G2 sum.
 MSM_N = 512
@@ -519,35 +561,23 @@ def print_shapes(shapes: dict, hists: dict) -> None:
 # Batches (host signer)
 # ---------------------------------------------------------------------------
 
-def make_keys(s0: int, n: int):
-    """Secrets s0 + i and their pubkeys by repeated addition of G1."""
-    from lighthouse_tpu_torch.crypto.cpu.curve import g1_generator
-
-    g = g1_generator()
-    pk = g.mul(s0)
-    pks = []
-    for _ in range(n):
-        pks.append(pk)
-        pk = pk + g
-    return pks
-
-
-def registry_points(n: int):
-    """[1]G, ..., [n]G (the keys of secrets 1..n) as cpu G1Points, built in
-    Jacobian coordinates, P_{i+1} = P_i + G, with one Montgomery batch
-    inversion for the affine conversion: an affine addition per key would
-    pay one field inversion each."""
+def registry_points(n: int, s0: int = 1):
+    """[s0]G, ..., [s0+n-1]G (the keys of secrets s0..s0+n-1) as cpu
+    G1Points, built in Jacobian coordinates, P_{i+1} = P_i + G, with one
+    Montgomery batch inversion for the affine conversion: an affine
+    addition per key would pay one field inversion each."""
     from lighthouse_tpu_torch.crypto.cpu.curve import G1Point
     from lighthouse_tpu_torch.crypto.cpu.fields import Fq
+    from lighthouse_tpu_torch.crypto.native import native_sk_to_pk_xy
     from lighthouse_tpu_torch.crypto.params import G1_X, G1_Y, P
 
     gx, gy = G1_X, G1_Y
-    # P_2 = 2G in affine, then mixed additions of G (P_i != +-G for i >= 2)
-    lam = 3 * gx * gx * pow(2 * gy, P - 2, P) % P
-    x2 = (lam * lam - 2 * gx) % P
-    X, Y, Z = x2, (lam * (gx - x2) - gy) % P, 1
-    xs, ys, zs = [gx], [gy], [1]
-    for _ in range(1, n):
+    # the first two keys from the C library, then mixed additions of G
+    # (P_i != +-G for i >= 2, so the addition never meets a doubling)
+    x0, y0 = native_sk_to_pk_xy(s0)
+    xs, ys, zs = [x0], [y0], [1]
+    (X, Y), Z = native_sk_to_pk_xy(s0 + 1), 1
+    for _ in range(n - 1):
         xs.append(X)
         ys.append(Y)
         zs.append(Z)
@@ -578,7 +608,7 @@ def keys_for(s0: int, n: int, registry=None):
     """The pubkeys of secrets s0 .. s0+n-1: the registry's own point
     objects (secret i is registry row i-1) when one is given."""
     if registry is None:
-        return make_keys(s0, n)
+        return registry_points(n, s0)
     return registry[s0 - 1: s0 - 1 + n]
 
 
@@ -603,15 +633,15 @@ def gossip_sets(rng, s0: int, registry=None):
 
 def committee_set(rng, s0: int, pks):
     """One set signed by the secrets s0 .. s0+k-1 of ``pks`` over a random
-    message: the signature of their aggregate secret."""
+    message: the signature of their aggregate secret, by the C library's
+    signer (the pure-Python signer's bytes, 30 times faster)."""
     from lighthouse_tpu_torch.crypto.bls import Signature
-    from lighthouse_tpu_torch.crypto.cpu.hash_to_curve import hash_to_g2
-    from lighthouse_tpu_torch.crypto.params import DST, R
+    from lighthouse_tpu_torch.crypto.native import native_sign
+    from lighthouse_tpu_torch.crypto.params import R
 
     k = len(pks)
     m = rng.bytes(32)
-    sig = hash_to_g2(m, DST).mul((k * s0 + k * (k - 1) // 2) % R)
-    return Signature.deserialize(sig.compress()), list(pks), m
+    return Signature.deserialize(native_sign((k * s0 + k * (k - 1) // 2) % R, m)), list(pks), m
 
 
 def block_sets(rng, s0: int, registry=None):
@@ -959,13 +989,17 @@ def collapse_phase(rng, registry, table, backend):
 
 
 def msm_phase(rng, registry, table, backend, dev, csets):
-    """The G1 MSM at N = 512 and the G2 sum at N = 128 against the host
-    fold; one committee's all-ones MSM against the table's host sum; and a
+    """The G1 MSM at N = 512 against the host reference (the C library's
+    [sum s_i k_i]G) and the G2 sum at N = 128 against the host fold; one
+    committee's all-ones MSM against the table's host sum; and a
     committee inserted ahead of time whose first sighting ships K = 1.
     Returns the lane histograms of the three device sums by path, and the
-    inputs and host folds of the G1 MSM and the G2 sum."""
+    inputs and host references of the G1 MSM and the G2 sum."""
     from lighthouse_tpu_torch.crypto.cpu.curve import G1Point, G2Point, g2_generator
+    from lighthouse_tpu_torch.crypto.cpu.fields import Fq
     from lighthouse_tpu_torch.crypto.device import bls as dbls, curve, kernels, msm
+    from lighthouse_tpu_torch.crypto.native import native_sk_to_pk_xy
+    from lighthouse_tpu_torch.crypto.params import R as R_ORDER
 
     hists = {}
 
@@ -992,15 +1026,20 @@ def msm_phase(rng, registry, table, backend, dev, csets):
     got = counted(f"msm g1 N={MSM_N}",
                   lambda: dbls.device_msm_g1(pts, sc, pad_n=MSM_N, device=dev),
                   ["fp_mul_cols"])
+    # the host reference: registry row i is [i + 1]G, so the MSM is
+    # [sum_i s_i (i + 1) mod r]G, one scalar multiplication of G by the C
+    # library (a pure-Python fold of 512 u64 products took 20 s)
     t0 = time.perf_counter()
-    want = G1Point.infinity()
-    for p, s in zip(pts, sc):
-        want = want + p.mul(s)
-    log(f"msm g1 host fold: {time.perf_counter() - t0:.3f} s")
+    if any((p.x, p.y) != tuple(Fq(c) for c in native_sk_to_pk_xy(i + 1))
+           for i, p in enumerate(pts)):
+        raise AssertionError("msm g1: the registry rows are not [i + 1]G")
+    k = sum(s * (i + 1) for i, s in enumerate(sc)) % R_ORDER
+    want = G1Point.infinity() if k == 0 else G1Point(*(Fq(c) for c in native_sk_to_pk_xy(k)))
+    log(f"msm g1 host reference: {time.perf_counter() - t0:.3f} s")
     if got.compress() != want.compress():
-        raise AssertionError("msm g1: differs from the host fold")
+        raise AssertionError("msm g1: differs from the host reference")
     refs = {"g1": (pts, sc, want), "g2": (None, None, None)}
-    log(f"msm g1 N={MSM_N} (random u64 scalars, one all-ones): equal to the host fold")
+    log(f"msm g1 N={MSM_N} (random u64 scalars, one all-ones): equal to the host reference")
 
     g2 = g2_generator()
     q = g2.mul(int(rng.integers(1, 2 ** 62)))
@@ -1114,9 +1153,11 @@ def capture_table(plan, msm_rungs, dev) -> dict:
             return
         seen[id(g)] = label
         out[label] = dict(capture_s=g.capture_s, instantiate_s=g.instantiate_s,
+                          instantiate_max_s=g.instantiate_max_s, segments=len(g.segments),
                           warmup_s=g.warmup_s, nodes=g.nodes,
                           pool_bytes=g.pool_bytes, launches=g.record()["launches"])
-        log(f"  {label}: capture {g.capture_s:.3f} s (instantiate {g.instantiate_s:.3f}), "
+        log(f"  {label}: capture {g.capture_s:.3f} s (instantiate {g.instantiate_s:.3f}, "
+            f"{len(g.segments)} segments, longest {g.instantiate_max_s:.3f}), "
             f"eager warm-up {g.warmup_s:.3f} s, "
             f"{g.nodes} nodes, pool {g.pool_bytes} B, launches {json.dumps(out[label]['launches'])}")
 
@@ -1307,7 +1348,8 @@ def concurrent_warm_phase(svc, backend, cold_rungs, traffic, dev) -> dict:
                 steps = ", ".join(f"{k} +{a - t_start:.2f}..+{b - t_start:.2f}"
                                   for k, (a, b) in g.steps.items())
                 log(f"  worker captured {p.name} [{shapes}]: warm-up {g.warmup_s:.3f} s, "
-                    f"capture {g.capture_s:.3f} s (instantiate {g.instantiate_s:.3f}), "
+                    f"capture {g.capture_s:.3f} s (instantiate {g.instantiate_s:.3f}, "
+                    f"{len(g.segments)} segments, longest {g.instantiate_max_s:.3f}), "
                     f"{g.nodes} nodes; steps (s) {steps}")
     n_over = sum(1 for ov in overlap if ov > 0)
     by_label = {}
@@ -1416,7 +1458,7 @@ def serve_pools(rng, s0: int):
     from lighthouse_tpu_torch.crypto.cpu.hash_to_curve import hash_to_g2
     from lighthouse_tpu_torch.crypto.params import DST, R
 
-    keys = [PublicKey(p) for p in make_keys(s0, SERVE_COMMITTEES * 8 + SERVE_SYNC)]
+    keys = [PublicKey(p) for p in registry_points(SERVE_COMMITTEES * 8 + SERVE_SYNC, s0)]
     msgs = [rng.bytes(32) for _ in range(SERVE_COMMITTEES + 1)]
     hs = [hash_to_g2(m, DST) for m in msgs]
     pools = {"unaggregated": [], "aggregate": [], "sync_message": []}
@@ -1708,11 +1750,11 @@ def _graph_keys() -> set:
             for key in recs}
 
 
-def _wait_for(cond, timeout: float, what: str) -> float:
+def _wait_for(cond, timeout: float, what: str, label: str = "mesh") -> float:
     t0 = time.perf_counter()
     while not cond():
         if time.perf_counter() - t0 > timeout:
-            raise AssertionError(f"mesh: timed out after {timeout} s waiting for {what}")
+            raise AssertionError(f"{label}: timed out after {timeout} s waiting for {what}")
         time.sleep(0.02)
     return time.perf_counter() - t0
 
@@ -1960,6 +2002,9 @@ def mesh_phase(svc, table, pools, poisoned, serve_warm, backend, gbsets, dev) ->
     chaos["lost"] = False
     down_s = _wait_for(lambda: mesh2.healthy_shards() == [0, 1],
                        MESH_PROBE_MAX_S * 2 + 30, "re-admission")
+    # the recovery worker re-admits the shard, then journals it
+    _wait_for(lambda: _events_since(seq_rec, ["shard_recovered"]), 5,
+              "the shard_recovered event")
     if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
         raise AssertionError("mesh 4: the re-warm did not finish")
     rec = _events_since(seq_rec, ["shard_recovered"])
@@ -2285,23 +2330,28 @@ def chain_harness(n: int):
                         pubkey_fn=native_pubkey)
 
 
-def chain_node(genesis_bytes: bytes, n_expected: int):
-    """A ``BeaconChain`` on the genesis state carried across as SSZ bytes:
-    ``HotColdDB`` over ``MemoryStore``, a ``ManualSlotClock``. Returns
-    (chain, clock, types)."""
-    from lighthouse_tpu_torch.beacon_chain import BeaconChain
-    from lighthouse_tpu_torch.state_transition import store_replayer
-    from lighthouse_tpu_torch.store import HotColdDB, MemoryStore
-    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+def chain_node(genesis_bytes: bytes, n_expected: int, **cfg):
+    """A beacon node built by the port's ``ClientBuilder`` on the genesis
+    state carried across as SSZ bytes: the mainnet preset (altair from
+    genesis), an in-memory store, HTTP on a free port unless ``cfg`` turns
+    it off, and a ``ManualSlotClock`` installed as the process clock (the
+    duty lookahead and the key table read it). ``cfg`` holds the other
+    ``ClientConfig`` fields. Returns (client, clock, types); the client is
+    started."""
+    from lighthouse_tpu_torch.client import ClientBuilder, ClientConfig
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock, set_clock
 
     preset, spec, t = chain_spec_and_types()
     genesis = t.state["altair"].decode(genesis_bytes)
     if len(genesis.validators) != n_expected:
         raise AssertionError("chain: the genesis state lost validators on the way")
-    db = HotColdDB(MemoryStore(), t, spec, store_replayer(preset, spec))
     clock = ManualSlotClock(genesis.genesis_time, spec.seconds_per_slot,
                             preset.SLOTS_PER_EPOCH)
-    return BeaconChain(preset, spec, t, db, genesis, slot_clock=clock), clock, t
+    set_clock(clock)
+    client = (ClientBuilder(ClientConfig(**{"preset_base": "mainnet", "http_port": 0, **cfg}),
+                            spec)
+              .with_genesis_state(genesis).with_slot_clock(clock).build().start())
+    return client, clock, t
 
 
 def slot_attestations(h, slot: int, cache):
@@ -2448,17 +2498,74 @@ def _kinds(results) -> list:
             for r in results]
 
 
-def chain_slot(chain, clock, t, msg, walls=None) -> dict:
-    """Import one slot's block through ``process_block`` and verify its
-    gossip through the chain's verifiers: the unaggregated attestations in
-    batches of ``CHAIN_GOSSIP_BATCH``, the aggregates, the sync messages.
-    Returns the roots and every verdict (``ok`` or the error kind)."""
-    from lighthouse_tpu_torch.beacon_chain import batch_verify_sync_committee_messages
+def api_get(client, path: str):
+    """GET ``path`` from the node's HTTP API; the decoded JSON body."""
+    import urllib.request
+
+    url = f"http://127.0.0.1:{client.api.port}{path}"
+    with urllib.request.urlopen(url, timeout=CHAIN_TIMEOUT_S) as r:
+        return json.loads(r.read())
+
+
+def process_sync(client, msgs) -> list:
+    """Submit ``msgs`` to the node's beacon processor as gossip sync
+    messages (it verifies them in batches and puts every verified one in
+    the node's operation pool); the results, in order."""
+    import threading
+
+    from lighthouse_tpu_torch.beacon_processor import Work, WorkKind
+
+    out = [None] * len(msgs)
+    left = [len(msgs)]
+    lock, done = threading.Lock(), threading.Event()
+
+    def finish(i):
+        def cb(result):
+            out[i] = result
+            with lock:
+                left[0] -= 1
+                if not left[0]:
+                    done.set()
+        return cb
+
+    for i, m in enumerate(msgs):
+        if not client.processor.submit(Work(WorkKind.GOSSIP_SYNC_MESSAGE, m, done=finish(i))):
+            raise AssertionError("chain: the beacon processor shed a sync message")
+    if msgs and not done.wait(CHAIN_TIMEOUT_S):
+        raise AssertionError("chain: the beacon processor did not finish a slot's sync "
+                             "messages")
+    return out
+
+
+def _popcount(hex_bits: str) -> int:
+    return sum(bin(b).count("1") for b in bytes.fromhex(hex_bits[2:]))
+
+
+def chain_slot(client, clock, t, msg, walls=None) -> dict:
+    """One slot on a node built by ``chain_node``. For a slot of
+    ``CHAIN_PRODUCE_SLOTS`` a block is first produced over HTTP on the
+    previous slot's head, with the RANDAO reveal of the producer's block
+    (the C signer's); it is not imported. Then the slot's block is
+    imported through ``process_block``, its unaggregated attestations
+    verified in batches of ``CHAIN_GOSSIP_BATCH``, its aggregates, and its
+    sync messages submitted to the node's beacon processor, which puts
+    them in the operation pool. For a slot of ``CHAIN_CONTRIB_SLOTS`` each
+    subcommittee's sync contribution is then asked for over HTTP. Returns
+    the roots, every verdict (``ok`` or the error kind), the produced
+    block and the contributions."""
     from lighthouse_tpu_torch.ssz import hash_tree_root
 
+    chain = client.chain
     _, slot, block, gossip, _ = msg
     clock.set_slot(slot)
     sb = t.signed_block["altair"].decode(block)
+    w = {}
+    produced = None
+    if slot in CHAIN_PRODUCE_SLOTS:
+        p0 = time.perf_counter()
+        randao = bytes(sb.message.body.randao_reveal).hex()
+        produced = api_get(client, f"/eth/v2/validator/blocks/{slot}?randao_reveal=0x{randao}")
+        w["produce"] = time.perf_counter() - p0
     w0 = time.perf_counter()
     root = chain.process_block(sb)
     w1 = time.perf_counter()
@@ -2468,82 +2575,111 @@ def chain_slot(chain, clock, t, msg, walls=None) -> dict:
         unagg += _kinds(chain.batch_verify_unaggregated_attestations_for_gossip(
             atts[i:i + CHAIN_GOSSIP_BATCH]))
     w2 = time.perf_counter()
+    table = chain.device_key_table
+    hits0 = table.status()["aggregate_hits"] if table is not None else 0
+    miss0 = _metric("bls_device_key_table_agg_events_total", "miss")
     aggs = _kinds(chain.batch_verify_aggregated_attestations_for_gossip(
         [t.SignedAggregateAndProof.decode(b) for b in gossip["aggregates"]]))
+    if table is not None:
+        w["agg_hits"] = table.status()["aggregate_hits"] - hits0
+        w["agg_misses"] = _metric("bls_device_key_table_agg_events_total", "miss") - miss0
     w3 = time.perf_counter()
-    sync = _kinds(batch_verify_sync_committee_messages(
-        chain, [t.SyncCommitteeMessage.decode(b) for b in gossip["sync"]]))
+    sync = _kinds(process_sync(client, [t.SyncCommitteeMessage.decode(b)
+                                        for b in gossip["sync"]]))
     w4 = time.perf_counter()
+    contributions = None
+    if slot in CHAIN_CONTRIB_SLOTS:
+        contributions = []
+        for i in range(chain.preset.SYNC_COMMITTEE_SUBNET_COUNT):
+            body = api_get(client, f"/eth/v1/validator/sync_committee_contribution?slot={slot}"
+                                   f"&subcommittee_index={i}&beacon_block_root=0x{root.hex()}")
+            contributions.append(body["data"])
+        w["contributions"] = time.perf_counter() - w4
     if walls is not None:
         walls.append({"import": w1 - w0, "unaggregated": w2 - w1, "aggregate": w3 - w2,
-                      "sync": w4 - w3})
+                      "sync": w4 - w3, **w})
     return {"slot": slot, "root": root.hex(), "head": chain.head_block_root.hex(),
             "state_root": hash_tree_root(chain.head_state).hex(),
             "unaggregated": unagg, "aggregate": aggs, "sync": sync,
-            "tampered": gossip["tampered"]}
+            "tampered": gossip["tampered"], "produced": produced,
+            "contributions": contributions}
+
+
+def _metric(name: str, *labels) -> float:
+    """The value of family ``name``'s child at ``labels`` (0 when absent)."""
+    from lighthouse_tpu_torch.utils import metrics
+
+    fam = metrics.get(name)
+    child = None if fam is None else fam.children().get(tuple(labels))
+    return 0.0 if child is None else child.value
+
+
+def check_sync_aggregate(client, produced) -> None:
+    """The produced block's sync aggregate verifies on this process's
+    backend (the oracle's ``cpu-native``): the participants' keys of the
+    current sync committee over the parent root, signed at its slot."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.types import (DOMAIN_SYNC_COMMITTEE, compute_signing_root,
+                                            get_domain)
+
+    chain = client.chain
+    state, blk = chain.head_state, produced["data"]
+    agg = blk["body"]["sync_aggregate"]
+    bits = bytes.fromhex(agg["sync_committee_bits"][2:])
+    pks = [bls.PublicKey.deserialize(bytes(pk))
+           for i, pk in enumerate(state.current_sync_committee.pubkeys)
+           if bits[i // 8] >> (i % 8) & 1]
+    prev = int(blk["slot"]) - 1
+    root = compute_signing_root(None, bytes.fromhex(blk["parent_root"][2:]),
+                                get_domain(chain.spec, state, DOMAIN_SYNC_COMMITTEE,
+                                           prev // chain.preset.SLOTS_PER_EPOCH))
+    sig = bls.AggregateSignature.deserialize(bytes.fromhex(agg["sync_committee_signature"][2:]))
+    if not sig.fast_aggregate_verify(root, pks):
+        raise AssertionError(f"chain oracle: the sync aggregate produced at slot {blk['slot']} "
+                             "does not verify")
 
 
 def chain_oracle(inq, outq, n: int) -> None:
-    """The oracle process: the same chain on ``cpu-native``, fed the
-    producer's bytes; one result per slot on ``outq``, then None."""
-    from lighthouse_tpu_torch.crypto import backend
-
-    backend.set_backend("cpu-native")
-    _, genesis, _ = inq.get()
-    chain, clock, t = chain_node(genesis, n)
+    """The oracle process: the same node on ``cpu-native`` (so its
+    operation pool has no device aggregator: every aggregate is the host
+    fold) with the backend called directly, no scheduler, fed the
+    producer's bytes; one result per slot on ``outq``, then None. Every
+    block it produces must carry a sync aggregate that verifies here."""
+    client, clock, t = chain_node(inq.get()[1], n, bls_backend="cpu-native",
+                                  verification_scheduler=False)
+    if client.chain.op_pool._device_agg is not None:
+        raise AssertionError("chain oracle: the pool has a device aggregator")
     while (msg := inq.get()) is not None:
-        outq.put(chain_slot(chain, clock, t, msg))
+        r = chain_slot(client, clock, t, msg)
+        if r["produced"] is not None:
+            check_sync_aggregate(client, r["produced"])
+        outq.put(r)
+    client.stop()
     outq.put(None)
 
 
-def wire_chain(chain, svc, dev):
-    """Wire ``chain`` as the node wires the device backend: a key table over
-    its pubkey cache, synced at startup and attached, with the delta
-    listener, and a ``VerificationScheduler`` with the compile service.
-    Returns the table."""
-    from lighthouse_tpu_torch.crypto.device import key_table
-    from lighthouse_tpu_torch.verification_service import VerificationScheduler
-
-    table = key_table.DeviceKeyTable(chain.pubkey_cache, device=dev)
-    table.sync(reason="startup")
-    key_table.set_table(table)
-    listener = lambda _cache, _t=table: _t.sync_or_schedule(reason="delta")  # noqa: E731
-    chain.pubkey_cache.subscribe(listener)
-    chain._key_table_listener = listener
-    chain.device_key_table = table
-    chain.compile_service = svc
-    chain.verification_scheduler = VerificationScheduler(compile_service=svc).start()
-    return table
-
-
 def chain_segment(inq, outq, n: int, device_index: int) -> None:
-    """The segment chain's process, on the card: its own compile service
-    (warming ``CHAIN_SEGMENT_RUNGS``), key table and scheduler; it imports
-    the blocks ``CHAIN_SEGMENT_BLOCKS`` at a time through
-    ``process_chain_segment`` (the scheduler's bulk class) and puts one
-    result on ``outq``: the roots, walls, K1-K3 launches and lanes."""
-    from lighthouse_tpu_torch.compile_service import service as csvc
-    from lighthouse_tpu_torch.crypto.device import kernels, key_table
+    """The segment chain's process, on the card: a node with its own
+    compile service (warming ``CHAIN_SEGMENT_RUNGS``), key table and
+    scheduler, no HTTP and no lookahead. It imports the blocks
+    ``CHAIN_SEGMENT_BLOCKS`` at a time through ``process_chain_segment``
+    (the scheduler's bulk class) and puts one result on ``outq``: the
+    roots, walls, K1-K3 launches and lanes."""
+    from lighthouse_tpu_torch.crypto.device import kernels
     from lighthouse_tpu_torch.ssz import hash_tree_root
 
-    rehearsal = {}
     if device_index >= 0:
         dev = torch.device("cuda", device_index)
         torch.cuda.set_device(dev)
         kernels.build()
-    else:  # a CPU rehearsal: the C verifier, nothing warmed
-        from lighthouse_tpu_torch.crypto import backend
-
-        dev = torch.device("cpu")
-        backend.set_backend("cpu-native")
-        rehearsal = {"compile_rung_fn": lambda *a, **k: None}
-    svc = csvc.CompileService(rungs=list(CHAIN_SEGMENT_RUNGS), device=dev, **rehearsal)
-    csvc.set_service(svc)
-    svc.start()
-    _, genesis, _ = inq.get()
-    chain, clock, t = chain_node(genesis, n)
-    table = wire_chain(chain, svc, dev)
-    if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
+        node = {"bls_backend": "cuda", "device": str(dev)}
+    else:  # a CPU rehearsal: the C verifier, no device wiring
+        node = {"bls_backend": "cpu-native"}
+    client, clock, t = chain_node(inq.get()[1], n, http_enabled=False, duty_lookahead=False,
+                                  compile_rungs=CHAIN_SEGMENT_RUNGS, **node)
+    chain = client.chain
+    svc, table = chain.compile_service, chain.device_key_table
+    if svc is not None and not svc.wait_idle(timeout=WARM_TIMEOUT_S):
         raise AssertionError("chain segment: the compile service did not warm its rungs")
     kernels.reset_launches()
     roots, walls, pending = [], [], []
@@ -2559,16 +2695,14 @@ def chain_segment(inq, outq, n: int, device_index: int) -> None:
             roots += [r.hex() for r in chain.process_chain_segment(pending)]
             walls.append(time.perf_counter() - s0)
             pending = []
-    chain.verification_scheduler.stop()
-    status = svc.status()
-    svc.stop()
-    csvc.clear_service(svc)
-    key_table.clear_table(table)
+    routes = svc.status()["cold_routes"] if svc is not None else {}
+    sets = table.status()["sets"] if table is not None else {}
+    client.stop()
     outq.put({"roots": roots, "head": chain.head_block_root.hex(),
               "state_root": hash_tree_root(chain.head_state).hex(), "walls": walls,
               "launches": dict(kernels.launches),
               "lane_hist": {k: dict(h) for k, h in kernels.lane_hist.items()},
-              "key_table": table.status()["sets"], "routes": status["cold_routes"]})
+              "key_table": sets, "routes": routes})
 
 
 def extra_validator(state) -> int:
@@ -2585,11 +2719,35 @@ def extra_validator(state) -> int:
     return i
 
 
-def chain_phase(svc, dev, slots: int = None, n: int = None) -> dict:
-    """The port's beacon chain on the card (see the module docstring):
+def run_helper(fn, *args) -> None:
+    """A helper process's body: ``fn(*args)``, then its queues flushed and
+    the process left with ``os._exit(0)``, without the interpreter's
+    teardown (a node's daemon threads may still be inside torch when its
+    static destructors run, which once aborted a helper after it had
+    sent its results). An exception in ``fn`` still exits non-zero."""
+    import os
+
+    fn(*args)
+    for a in args:
+        for q in a if isinstance(a, list) else [a]:
+            if hasattr(q, "join_thread"):
+                q.close()
+                q.join_thread()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def chain_phase(dev, slots: int = None, n: int = None, prewarm=None) -> dict:
+    """The port's beacon node on the card (see the module docstring):
     starts the producer, signer, segment and oracle processes, runs the
-    block chain here, and stops every process it started."""
+    block chain's node here, and stops every process it started.
+    ``prewarm``, a started compile service, captures ``CHAIN_RUNGS`` while
+    the producer builds the genesis state, so the node's own service then
+    finds their graphs."""
     import multiprocessing as mp
+
+    from lighthouse_tpu_torch.utils import slot_clock
 
     slots = slots or CHAIN_SLOTS
     n = n or CHAIN_VALIDATORS
@@ -2598,23 +2756,24 @@ def chain_phase(svc, dev, slots: int = None, n: int = None) -> dict:
     planq, to_main, to_oracle, to_segment, from_oracle, from_segment = (
         ctx.Queue() for _ in range(6))
     seg_dev = dev.index if dev.type == "cuda" else -1
-    procs = [ctx.Process(target=chain_producer, args=(planq, n, slots), daemon=True),
-             ctx.Process(target=chain_signer, args=(planq, [to_main, to_oracle, to_segment]),
-                         daemon=True),
-             ctx.Process(target=chain_oracle, args=(to_oracle, from_oracle, n), daemon=True),
-             ctx.Process(target=chain_segment, args=(to_segment, from_segment, n, seg_dev),
-                         daemon=True)]
+    procs = [ctx.Process(target=run_helper, name=fn.__name__, args=(fn, *args), daemon=True)
+             for fn, args in ((chain_producer, (planq, n, slots)),
+                              (chain_signer, (planq, [to_main, to_oracle, to_segment])),
+                              (chain_oracle, (to_oracle, from_oracle, n)),
+                              (chain_segment, (to_segment, from_segment, n, seg_dev)))]
     for p in procs:
         p.start()
+    prev_clock = slot_clock.get_clock()
     try:
-        out = _chain_phase(svc, dev, slots, n, to_main, from_oracle, from_segment)
+        out = _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm)
     finally:
+        slot_clock.set_clock(prev_clock)
         for p in procs:
             p.join(timeout=10)
             if p.is_alive():
                 p.kill()
                 p.join()
-    bad = [p.exitcode for p in procs if p.exitcode]
+    bad = {p.name: p.exitcode for p in procs if p.exitcode}
     if bad:
         raise AssertionError(f"chain: a helper process failed (exit codes {bad})")
     out["wall_s"] = time.perf_counter() - t_phase
@@ -2622,28 +2781,109 @@ def chain_phase(svc, dev, slots: int = None, n: int = None) -> dict:
     return out
 
 
-def _chain_phase(svc, dev, slots, n, to_main, from_oracle, from_segment) -> dict:
-    from lighthouse_tpu_torch.crypto.device import kernels, key_table
+def lookahead_check(chain) -> dict:
+    """Called before the first slot of ``CHAIN_LOOKAHEAD_EPOCH``: the duty
+    lookahead warmed that epoch past its halfway trigger in the epoch
+    before (waiting for its worker if it is still summing), with every
+    committee through the card and none on the host or failed."""
+    la = chain.duty_lookahead
+    epoch = CHAIN_LOOKAHEAD_EPOCH
+    _wait_for(lambda: (la.status()["warmed_epoch"] or 0) >= epoch, CHAIN_TIMEOUT_S,
+              f"the duty lookahead's warm of epoch {epoch}", label="chain")
+    st = la.status()
+    want = chain.preset.SLOTS_PER_EPOCH * CHAIN_COMMITTEES_A_SLOT
+    got = {p: _metric("duty_lookahead_committees_total", p) for p in ("device", "host",
+                                                                      "failed")}
+    if (st["committees"]["device"], st["committees"]["host"], st["committees"]["failed"]) != (
+            want, 0, 0) or got != {"device": want, "host": 0, "failed": 0}:
+        raise AssertionError(f"chain: the lookahead's committees {st['committees']} (metric "
+                             f"{got}): want {want} through the card, none on the host, none "
+                             "failed")
+    log(f"chain: the duty lookahead warmed epoch {epoch} before its first slot: {want} "
+        f"committees through the card (device MSM at N=128), wall {st['last_warm_s']:.3f} s, "
+        f"inserts {json.dumps(st['inserts'])}")
+    return {"epoch": epoch, "committees": st["committees"], "inserts": st["inserts"],
+            "wall_s": st["last_warm_s"]}
+
+
+def node_sums(chain, dev) -> dict:
+    """The node's two device callers, each called once more here, alone,
+    at the rungs its path ran (the lookahead at N=128 on a committee's
+    keys, the pool's G2 sums at 128 and 512 points): each result against
+    the host fold, its wall, and its K1-K3 launches and lane counts (the
+    launches of one call; the node's own calls ran beside the chain's
+    verifies, where the counts cannot be told apart)."""
+    from lighthouse_tpu_torch.compile_service.service import MSM_RUNGS
+    from lighthouse_tpu_torch.crypto.cpu.curve import g2_generator
+    from lighthouse_tpu_torch.crypto.device import bls as dbls, kernels
+    from lighthouse_tpu_torch.state_transition.helpers import CommitteeCache
+
+    cache = CommitteeCache(chain.preset, chain.head_state, CHAIN_LOOKAHEAD_EPOCH)
+    first = chain.preset.SLOTS_PER_EPOCH * CHAIN_LOOKAHEAD_EPOCH
+    pks = [chain.pubkey_cache.get(int(i)).point for i in cache.committee(first, 0)]
+    g2 = [g2_generator().mul(i + 1) for i in range(max(MSM_RUNGS))]
+    calls = {"lookahead msm g1 N=128": (lambda: dbls.device_msm_g1(
+                 pks, [1] * len(pks), pad_n=128, device=dev), _host_sum(pks)),
+             "pool sum g2 N=128": (lambda: dbls.device_sum_g2(g2[:128], pad_n=128, device=dev),
+                                   g2_generator().mul(128 * 129 // 2)),
+             "pool sum g2 N=512": (lambda: dbls.device_sum_g2(g2, pad_n=512, device=dev),
+                                   g2_generator().mul(512 * 513 // 2))}
+    out = {}
+    for label, (fn, want) in calls.items():
+        fn()  # replays from here on
+        torch.cuda.current_stream().synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = fn()
+        wall = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError(f"{label}: differs from the host fold")
+        if KERNELS and not any(kernels.launches.values()):
+            raise AssertionError(f"{label}: launched none of K1-K3")
+        out[label] = {"wall_s": wall, "launches": dict(kernels.launches),
+                      "lane_hist": {k: dict(h) for k, h in kernels.lane_hist.items()}}
+        log(f"  {label}: equal to the host fold, {1e3 * wall:.2f} ms a call (a replay), "
+            f"K1-K3 launches {json.dumps(out[label]['launches'])}")
+    return out
+
+
+def _host_sum(points):
+    agg = points[0]
+    for p in points[1:]:
+        agg = agg + p
+    return agg
+
+
+def _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm) -> dict:
+    from lighthouse_tpu_torch.crypto.device import kernels
+    from lighthouse_tpu_torch.utils import slot_ledger
 
     log(f"chain: {card_line()}")
-    for rung in CHAIN_RUNGS:
-        svc.request(*rung)
+    for rung in CHAIN_RUNGS if prewarm is not None else ():
+        prewarm.request(*rung)
     _, genesis, genesis_s = to_main.get(timeout=CHAIN_TIMEOUT_S)
+    if prewarm is not None and not prewarm.wait_idle(timeout=WARM_TIMEOUT_S):
+        raise AssertionError("chain: the phase-9 service did not capture the phase's rungs")
     log(f"chain: genesis of {n} validators built by the producer in {genesis_s:.1f} s "
         f"({len(genesis)} SSZ bytes)")
     t0 = time.perf_counter()
-    chain, clock, t = chain_node(genesis, n)
-    log(f"chain: the block chain built in {time.perf_counter() - t0:.1f} s (pubkey cache of "
-        f"{len(chain.pubkey_cache)} keys)")
-    t0 = time.perf_counter()
-    table = wire_chain(chain, svc, dev)
-    log(f"chain: key table synced at startup in {time.perf_counter() - t0:.2f} s "
-        f"({table.status()['validators_resident']} keys resident)")
+    client, clock, t = chain_node(genesis, n, bls_backend="cuda", device=str(dev),
+                                  device_msm=True, duty_lookahead=True,
+                                  compile_rungs=CHAIN_RUNGS)
+    chain = client.chain
+    svc, table = chain.compile_service, chain.device_key_table
+    log(f"chain: the node built by ClientBuilder in {time.perf_counter() - t0:.1f} s "
+        f"(pubkey cache of {len(chain.pubkey_cache)} keys; "
+        f"{table.status()['validators_resident']} keys resident in the key table; "
+        f"aggregator, mesh of {len(chain.device_mesh)}, lookahead, compile service, "
+        f"scheduler, beacon processor, HTTP on port {client.api.port})")
     t0 = time.perf_counter()
     if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
         raise AssertionError("chain: the compile service did not warm the phase's rungs")
-    log(f"chain: rungs {list(CHAIN_RUNGS)} warm ({time.perf_counter() - t0:.1f} s waited)")
+    log(f"chain: rungs {list(CHAIN_RUNGS)} and MSM ladder {svc.status()['msm_warm']} warm "
+        f"({time.perf_counter() - t0:.1f} s waited)")
     routes0, graphs0 = _route_counts(svc), _graph_count()
+    agg0 = {k: _metric("op_pool_device_agg_total", k) for k in ("ok", "fallback", "small")}
     mine, walls, now_walls, stage_s = [], [], [], []
     sched = chain.verification_scheduler
     verify_now = sched.verify_now
@@ -2658,21 +2898,36 @@ def _chain_phase(svc, dev, slots, n, to_main, from_oracle, from_segment) -> dict
     sched.verify_now = timed_verify_now
     torch.cuda.current_stream().synchronize()
     kernels.reset_launches()
+    lookahead = None
     t_loop = time.perf_counter()
     while (msg := to_main.get(timeout=CHAIN_TIMEOUT_S)) is not None:
+        if msg[1] == chain.preset.SLOTS_PER_EPOCH * CHAIN_LOOKAHEAD_EPOCH:
+            lookahead = lookahead_check(chain)
         stage_s.append(msg[4])
-        mine.append(chain_slot(chain, clock, t, msg, walls))
+        mine.append(chain_slot(client, clock, t, msg, walls))
         r, w = mine[-1], walls[-1]
-        if r["slot"] % 8 == 0 or r["slot"] == slots:
+        if r["slot"] % 8 == 0 or r["slot"] == slots or "produce" in w:
             log(f"  slot {r['slot']}: head {r['head'][:12]} state {r['state_root'][:12]}; "
                 f"import {w['import']:.2f} s, gossip {w['unaggregated']:.2f} / "
-                f"{w['aggregate']:.2f} / {w['sync']:.2f} s")
+                f"{w['aggregate']:.2f} / {w['sync']:.2f} s"
+                + (f", block produced in {w['produce']:.2f} s" if "produce" in w else "")
+                + (f", 4 contributions in {w['contributions']:.2f} s"
+                   if "contributions" in w else ""))
+        if lookahead is not None and "collapse" not in lookahead:
+            if (w["agg_hits"], w["agg_misses"]) != (len(r["aggregate"]), 0):
+                raise AssertionError(f"chain: slot {r['slot']}'s aggregates: {w['agg_hits']} "
+                                     f"collapsed, {w['agg_misses']} first sightings missed")
+            ratio = _metric("key_table_first_sighting_hit_ratio", str(CHAIN_LOOKAHEAD_EPOCH))
+            lookahead["collapse"] = {"slot": r["slot"], "aggregates": w["agg_hits"],
+                                     "first_sighting_hit_ratio": ratio}
+            log(f"chain: slot {r['slot']}'s {w['agg_hits']} aggregates took the collapsed "
+                f"path on their first sighting; key_table_first_sighting_hit_ratio"
+                f"{{epoch=\"{CHAIN_LOOKAHEAD_EPOCH}\"}} {ratio}")
     loop_s = time.perf_counter() - t_loop
     launches = dict(kernels.launches)
     hist = {k: dict(h) for k, h in kernels.lane_hist.items()}
     sched.verify_now = verify_now
     st, slo = sched.status(), sched.slo_summary()
-    sched.stop()
     oracle = []
     while (r := from_oracle.get(timeout=CHAIN_TIMEOUT_S)) is not None:
         oracle.append(r)
@@ -2699,19 +2954,52 @@ def _chain_phase(svc, dev, slots, n, to_main, from_oracle, from_segment) -> dict
     tst = table.status()
     if KERNELS and tst["sets"]["indexed"] + tst["sets"]["collapsed"] == 0:
         raise AssertionError("chain: no set resolved on the key table's gathered path")
+    # the node's pool: every contribution and produced sync aggregate went
+    # through the card and equals the oracle's host fold (mine == oracle)
+    contribs = [c for r in mine for c in r["contributions"] or ()]
+    produced = [r["produced"]["data"] for r in mine if r["produced"] is not None]
+    sums = {k: _metric("op_pool_device_agg_total", k) - agg0[k] for k in agg0}
+    want_sums = len(contribs) + len(produced)
+    n_sub = chain.preset.SYNC_COMMITTEE_SUBNET_COUNT
+    if (len(contribs) != n_sub * len([s for s in CHAIN_CONTRIB_SLOTS if s <= slots])
+            or len(produced) != len([s for s in CHAIN_PRODUCE_SLOTS if s <= slots])
+            or sums["fallback"] or sums["ok"] != want_sums):
+        raise AssertionError(f"chain: the pool's device sums {sums}: want {want_sums} ok and "
+                             f"no fallback ({len(contribs)} contributions, {len(produced)} "
+                             "blocks produced)")
+    for c in contribs:
+        if _popcount(c["aggregation_bits"]) != chain.preset.sync_subcommittee_size:
+            raise AssertionError(f"chain: a contribution of slot {c['slot']} is not full")
+    for b in produced:
+        bits = _popcount(b["body"]["sync_aggregate"]["sync_committee_bits"])
+        if bits != chain.preset.SYNC_COMMITTEE_SIZE:
+            raise AssertionError(f"chain: the block produced at slot {b['slot']} aggregates "
+                                 f"{bits} sync signatures")
+    if slots >= CHAIN_SLOTS and (lookahead is None or "collapse" not in lookahead):
+        raise AssertionError("chain: the lookahead's epoch was not checked")
     produce = [p for p, _s in stage_s]
     sign = [s for _p, s in stage_s]
     log(f"chain: {len(mine)} slots in {loop_s:.1f} s; every head, state root and verdict "
         f"equal to the cpu-native chain's (one tampered attestation a slot, the only "
         f"rejection: InvalidSignature); K1-K3 launches {json.dumps(launches)}")
+    log(f"chain: the operation pool: {len(contribs)} sync contributions (128 points each) "
+        f"over HTTP and {len(produced)} blocks produced over HTTP (512-point sync aggregates), "
+        f"every signature byte-equal to the oracle pool's host fold (the oracle verified each "
+        f"aggregate on cpu-native); op_pool_device_agg_total {json.dumps(sums)}")
     log(f"  key table paths (sets): {json.dumps(tst['sets'])}, hit ratio {tst['hit_ratio']}, "
-        f"aggregate inserts {tst['aggregate_inserts']}, hits {tst['aggregate_hits']}")
+        f"aggregate inserts {tst['aggregate_inserts']}, precomputed "
+        f"{tst['aggregate_precomputed']}, hits {tst['aggregate_hits']}")
     log(f"  producer s a slot: median {statistics.median(produce):.2f}; signer "
         f"{statistics.median(sign):.2f}")
     out = {"slots": len(mine), "validators": n, "loop_s": loop_s, "launches": launches,
            "lane_hist": hist, "key_table": {k: tst[k] for k in ("sets", "hit_ratio",
                                                                 "aggregate_inserts",
-                                                                "aggregate_hits")}}
+                                                                "aggregate_precomputed",
+                                                                "aggregate_hits")},
+           "lookahead": lookahead, "pool_sums": sums,
+           "produce_s": [w["produce"] for w in walls if "produce" in w],
+           "contributions_s": [w["contributions"] for w in walls if "contributions" in w],
+           "chain_time": slot_ledger.summary()}
     imp = sorted(w["import"] for w in walls)
     out["block_import"] = {"median_s": statistics.median(imp),
                            "p90_s": imp[int(0.9 * (len(imp) - 1))],
@@ -2755,15 +3043,138 @@ def _chain_phase(svc, dev, slots, n, to_main, from_oracle, from_segment) -> dict
     if after != e0 + 1 or len(chain.pubkey_cache) != e0 + 1:
         raise AssertionError(f"chain: the delta sync did not admit the new key "
                              f"({e0} -> {after})")
-    key_table.clear_table(table)
     log(f"chain: one more validator ({extra}) admitted through the pubkey cache: the "
         f"listener delta-synced the key table ({e0} -> {after} keys)")
+    log("chain: the node's device callers alone, once each (after the loop)")
+    out["node_sums"] = sums_alone = node_sums(chain, dev)
+    per_caller = {
+        "lookahead epoch": {k: v * (lookahead or {}).get("committees", {}).get("device", 0)
+                            for k, v in sums_alone["lookahead msm g1 N=128"]["launches"].items()},
+        "pool sums": {k: sums_alone["pool sum g2 N=128"]["launches"][k] * len(contribs)
+                      + sums_alone["pool sum g2 N=512"]["launches"][k] * len(produced)
+                      for k in sums_alone["pool sum g2 N=128"]["launches"]}}
+    out["launches_per_caller_derived"] = per_caller
+    log(f"chain: K1-K3 launches per caller, DERIVED, not counted on the node's path (one "
+        f"isolated call's launches times the calls the node made): {json.dumps(per_caller)}")
     routes1 = _route_counts(svc)
     out["routes"] = {k: routes1[k] - routes0[k] for k in routes1}
     out["graphs_captured"] = _graph_count() - graphs0
     log(f"chain: routes {json.dumps(out['routes'])}; graphs captured during the phase "
         f"{out['graphs_captured']}")
+    client.stop()
     return out
+
+
+def bn_phase() -> dict:
+    """Phase 12e: the port's entry point. ``python -m lighthouse_tpu_torch
+    bn --bls-backend cuda`` at the minimal preset with 64 interop
+    validators, HTTP on a free port and a data directory, in a
+    subprocess, its compile service given one rung (``BN_RUNG``, through
+    its env knob) and its genesis an hour ahead. Waits for its "beacon node up" line, reads
+    ``/eth/v1/node/health``, ``/lighthouse/health`` and ``/metrics`` (which
+    must parse as Prometheus text), waits until the compile service
+    reports the rung warm (the process built and launched the kernels),
+    then sends SIGTERM: the process must exit with 0 within
+    ``BN_EXIT_S`` and leave no lock file. The whole phase has
+    ``BN_BUDGET_S``."""
+    import os
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+
+    t0 = time.perf_counter()
+    deadline = t0 + BN_BUDGET_S
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root),
+               LIGHTHOUSE_TPU_COMPILE_RUNGS=":".join(map(str, BN_RUNG)))
+    lines, up, up_line = [], threading.Event(), []
+    with tempfile.TemporaryDirectory(prefix="bn-") as datadir:
+        # genesis an hour ahead: the node's duty lookahead idles before
+        # genesis, so no warm of its own races the SIGTERM (phase 12d drives
+        # the lookahead on the card)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lighthouse_tpu_torch", "bn", "--bls-backend", "cuda",
+             "--preset", "minimal", "--interop-validators", "64", "--http-port", "0",
+             "--genesis-time", str(int(time.time()) + 3600), "--datadir", datadir],
+            cwd=str(root), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+
+        def read():
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if line.startswith("beacon node up"):
+                    up_line.append(line.strip())
+                    up.set()
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        try:
+            if not up.wait(max(0.0, deadline - time.perf_counter())):
+                raise AssertionError(f"bn: no 'beacon node up' line in {BN_BUDGET_S} s: "
+                                     f"{lines[-20:]}")
+            up_s = time.perf_counter() - t0
+            port = int(re.search(r":(\d+) ", up_line[0]).group(1))
+
+            def get(path):
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+                    return r.status, r.read()
+
+            status, _ = get("/eth/v1/node/health")
+            health = json.loads(get("/lighthouse/health")[1])["data"]
+            text = get("/metrics")[1].decode()
+            bad = [ln for ln in text.splitlines() if ln and not _PROM_LINE.match(ln)]
+            samples = [ln for ln in text.splitlines() if ln and not ln.startswith("#")]
+            if status != 200 or bad or not samples:
+                raise AssertionError(f"bn: health {status}; /metrics lines that are not "
+                                     f"Prometheus text: {bad[:3]}")
+            while True:
+                csvc = json.loads(get("/lighthouse/health")[1])["data"]["compile_service"]
+                if _bn_warm(csvc):
+                    break
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"bn: no warm rung in {BN_BUDGET_S} s: {csvc}")
+                time.sleep(0.5)
+            warm_s = time.perf_counter() - t0
+            s0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=BN_EXIT_S)
+            exit_s = time.perf_counter() - s0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            reader.join(timeout=5)
+        lock = Path(datadir, "beacon.lock")
+        if rc != 0 or lock.exists():
+            raise AssertionError(f"bn: exit code {rc} after SIGTERM, lock file left: "
+                                 f"{lock.exists()}; {lines[-20:]}")
+    wall = time.perf_counter() - t0
+    if wall > BN_BUDGET_S:
+        raise AssertionError(f"bn: the phase took {wall:.1f} s of its {BN_BUDGET_S} s")
+    out = {"up_s": up_s, "warm_s": warm_s, "exit_s": exit_s, "wall_s": wall,
+           "warm_rungs": (csvc or {}).get("warm_rungs"), "metric_samples": len(samples),
+           "health_blocks": sorted(health)}
+    log(f"bn: {up_line[0]}")
+    log(f"bn: up in {up_s:.1f} s; health 200, /lighthouse/health and /metrics "
+        f"({len(samples)} samples, all Prometheus text) answered; rung {out['warm_rungs']} "
+        f"warm at {warm_s:.1f} s; SIGTERM: exit 0 in {exit_s:.2f} s, no lock file; phase "
+        f"{wall:.1f} s")
+    return out
+
+
+def _bn_warm(csvc) -> bool:
+    """The bn process's compile service (its ``/lighthouse/health`` block)
+    reports a warm rung."""
+    return bool(csvc and csvc["warm_rungs"])
+
+
+_PROM_LINE = re.compile(
+    r'^(# HELP [a-zA-Z_:][a-zA-Z0-9_:]* .*'
+    r'|# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|histogram|summary|untyped)'
+    r'|[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\["\\n])*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\["\\n])*")*\})? '
+    r'(-?[0-9.e+-]+|[+-]Inf|NaN)( -?[0-9]+)?)$')
 
 
 def warm_phase(rng, dev, backend, table, batches, path_rungs, eager, refs) -> dict:
@@ -2833,6 +3244,19 @@ def warm_phase(rng, dev, backend, table, batches, path_rungs, eager, refs) -> di
     return out
 
 
+
+_PHASE_T: list = []
+
+
+def _phase_mark(name: str) -> None:
+    """The start of phase ``name`` (and the end of the one before)."""
+    _PHASE_T.append((name, time.perf_counter()))
+
+
+def _phase_walls() -> dict:
+    """Each marked phase's wall, in seconds."""
+    return {a: round(t1 - t0, 1) for (a, t0), (_b, t1) in zip(_PHASE_T, _PHASE_T[1:])}
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2860,6 +3284,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     name = torch.cuda.get_device_name(0)
     card = card_line()
+    _phase_mark("1")
     log(f"phase 1 device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
     kernels.build()
     info = kernels.build_info
@@ -2877,6 +3302,7 @@ def main() -> int:
         print(json.dumps({"root": args.time_only, "source": str(kernels.SOURCE),
                           "launch_floor_ms": floor_ms, "timings": timings}), flush=True)
         return 0
+    _phase_mark("2")
     log("phase 2 kernels vs plain versions")
     errs = check_kernels(rng, dev)
 
@@ -2929,6 +3355,7 @@ def main() -> int:
         log("quick run complete")
         return 0
 
+    _phase_mark("3")
     log("phase 3 gossip batch: 64 attestations, 8 committees (K=1, M=8)")
     t0 = time.perf_counter()
     sets, msgs, hs = gossip_sets(rng, 1000)
@@ -2946,6 +3373,7 @@ def main() -> int:
     timed_verify(backend, tampered, "gossip tampered message", False)
     log(card)
 
+    _phase_mark("4")
     log("phase 4 block batch: 128 aggregates (K 180..229) + proposal + RANDAO")
     t0 = time.perf_counter()
     bsets = block_sets(rng, 100_000)
@@ -2965,6 +3393,7 @@ def main() -> int:
     log(card)
 
     n_reg = REGISTRY_SIZE
+    _phase_mark("5")
     log(f"phase 5 key table: a registry of {n_reg} validators (secrets 1..{n_reg})")
     t0 = time.perf_counter()
     registry = registry_points(n_reg)
@@ -2976,21 +3405,25 @@ def main() -> int:
     key_table.set_table(table)
     log(card)
 
+    _phase_mark("6")
     log("phase 6 gathered verifies (registry keys, collapse held off)")
     gbsets, gbwall, hists = gathered_phase(rng, registry, table, backend, dev)
     log(card)
 
+    _phase_mark("7")
     log("phase 7 collapse: a fresh block batch seen three times (agg_min_repeats 2)")
     csets, cwall, hists["collapsed block"] = collapse_phase(rng, registry, table, backend)
     path_rungs.append(backend.last_batch["rung"])
     log(card)
 
-    log("phase 8 msm: G1 MSM and G2 sum against the host fold; precomputed committee")
+    _phase_mark("8")
+    log("phase 8 msm: G1 MSM and G2 sum against host references; precomputed committee")
     msm_hists, refs = msm_phase(rng, registry, table, backend, dev, csets)
     hists.update(msm_hists)
     path_rungs.append(backend.last_batch["rung"])
     log(card)
 
+    _phase_mark("9")
     log("phase 9 warm dispatch: the compile service captures each rung's stage graphs; "
         "every path verified through the graphs, with the service attached")
     hists = {"gossip": ghist, "block": bhist, **hists}
@@ -3004,6 +3437,7 @@ def main() -> int:
     from lighthouse_tpu_torch.compile_service.service import DEFAULT_RUNGS
 
     cold = [DEFAULT_RUNGS[i] for i in CONCURRENT_COLD]
+    _phase_mark("10")
     log(f"phase 10 concurrent warm: the service's worker captures the cold rungs {cold} "
         "while this thread serves warm gossip and gathered block batches")
     key_table.set_table(table)
@@ -3015,10 +3449,12 @@ def main() -> int:
     key_table.clear_table(table)
     log(card)
 
+    _phase_mark("11")
     log("phase 11 engines: the gossip batch under the composed engine triples")
     warm["engines"] = engine_phase(backend, sets, dev)
     log(card)
 
+    _phase_mark("12")
     log("phase 12 serve: the verification scheduler on the card, the phase-9 compile "
         "service attached, replaying gossip_steady cold, warm, then shed to the C fallback")
     warm["serve"] = serve_phase(rng, warm["service"], [bsets, gbsets], dev,
@@ -3028,6 +3464,7 @@ def main() -> int:
             hists[f"serve {p}"] = warm["serve"][p].pop("lane_hist")
     log(card)
 
+    _phase_mark("12b")
     log("phase 12b mesh: one discovered shard, then two shards on the one card through "
         "a split, a loss, a recovery and a watchdog reap")
     pools, serve_poisoned = warm["serve"].pop("pools")
@@ -3040,6 +3477,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh}, default=str), flush=True)
     log(card)
 
+    _phase_mark("12c")
     log("phase 12c telemetry: one more pass with the ledgers reset and the capacity "
         "sampler ticking; the stage summary, data movement, chain time, capacity and "
         "device memory")
@@ -3048,18 +3486,34 @@ def main() -> int:
     print(json.dumps({"telemetry": tel}, default=str), flush=True)
     log(card)
 
-    log(f"phase 12d chain: the port's beacon chain ({CHAIN_VALIDATORS} validators, mainnet "
-        f"preset, altair) imports {CHAIN_SLOTS} slots of blocks and verifies their gossip "
-        "through the scheduler, the phase-9 compile service and a key table on the card; "
-        "a segment chain imports the same blocks; a cpu-native chain is the oracle")
+    _phase_mark("12d")
+    log(f"phase 12d chain: the port's beacon node, built by its ClientBuilder "
+        f"({CHAIN_VALIDATORS} validators, mainnet preset, altair), imports {CHAIN_SLOTS} "
+        "slots of blocks and verifies their gossip through its scheduler, compile service "
+        "and key table on the card; its duty lookahead warms the next epoch and its "
+        "operation pool sums sync signatures on the card; a segment node imports the same "
+        "blocks; a cpu-native node is the oracle")
+    from lighthouse_tpu_torch.compile_service import service as csvc
+
     prev_table = key_table.get_table()
-    chain = chain_phase(warm["service"], dev)
+    csvc.clear_service(warm["service"])  # the node attaches its own
+    chain = chain_phase(dev, prewarm=warm["service"])
+    csvc.set_service(warm["service"])
     key_table.set_table(prev_table)
     hists["chain"] = chain.pop("lane_hist")
     hists["chain segment"] = chain.pop("segment_lane_hist")
+    for label, rec in chain["node_sums"].items():
+        hists[label] = rec.pop("lane_hist")
     print(json.dumps({"chain": chain}, default=str), flush=True)
     log(card)
 
+    _phase_mark("12e")
+    log("phase 12e bn: the port's entry point, python -m lighthouse_tpu_torch bn "
+        "--bls-backend cuda, in a subprocess: up, health, metrics, one warm rung, SIGTERM")
+    print(json.dumps({"bn": bn_phase()}), flush=True)
+    log(card)
+
+    _phase_mark("13")
     log("phase 13 every kernel checked against its plain version and timed at "
         "each path's lane counts (device ms per launch, launches queued back to back)")
     gc.collect()  # the engine phase's garbage, before the timed queueing
@@ -3069,6 +3523,7 @@ def main() -> int:
     launch_floor(dev, card)
     # profiled after every timed run: a torch.profiler session slows the
     # launches that follow it (35-45% on an H100)
+    _phase_mark("14")
     log("phase 14 profiles (graph replays)")
     key_table.clear_table(table)  # the raw batches' keys are not the registry's
     served = {k: v["wall"] for k, v in warm["paths"].items()}
@@ -3094,7 +3549,6 @@ def main() -> int:
                 per_verify[k] = dict(lanes=lanes, device_ms=ms, bound_ms=b_ms)
     svc = warm.pop("service")
     svc.stop()
-    from lighthouse_tpu_torch.compile_service import service as csvc
     csvc.clear_service(svc)
     warm["paths"] = {k: {**v, "rung": list(v["rung"])} for k, v in warm["paths"].items()}
     print(json.dumps({"warm_dispatch": warm}, default=str), flush=True)
@@ -3115,6 +3569,8 @@ def main() -> int:
             "bound_ms_per_verify": per_verify[k]["bound_ms"],
             "timings": timings[k],
         })
+    _phase_mark("end")
+    log(f"phase walls (s): {json.dumps(_phase_walls())}")
     log(f"script wall {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

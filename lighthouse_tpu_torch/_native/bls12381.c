@@ -1372,6 +1372,21 @@ int bls_g1_pubkey_check(const uint8_t in[48], uint8_t out_xy[96]) {
     return 1;
 }
 
+/* Decompress a G2 signature with the host oracle's checks (flags, x in
+ * range, on the curve; no subgroup check): writes x.c0||x.c1||y.c0||y.c1
+ * (192 raw BE bytes). Returns 1 ok; 0 when the encoding is invalid or the
+ * infinity, which the caller's own path decides. */
+int bls_g2_decompress(const uint8_t in[96], uint8_t out[192]) {
+    ensure_init();
+    g2a a;
+    if (!g2_decompress(&a, in) || a.inf) return 0;
+    fp_to_bytes(out, &a.x.c0);
+    fp_to_bytes(out + 48, &a.x.c1);
+    fp_to_bytes(out + 96, &a.y.c0);
+    fp_to_bytes(out + 144, &a.y.c1);
+    return 1;
+}
+
 /* hash a message to G2, writing x.c0||x.c1||y.c0||y.c1 (192 raw BE). */
 int bls_hash_to_g2(const uint8_t *msg, uint32_t msg_len,
                    const uint8_t *dst, uint32_t dst_len,

@@ -88,23 +88,24 @@ class FakeBackend:
         return bool(sets) and all(pks for _, pks, _ in sets)
 
 
-def _cuda_backend():
+def _cuda_backend(device=None):
     from .device.bls import CudaBackend
 
-    return CudaBackend(device="cuda")
+    return CudaBackend(device=device or "cuda")
 
 
-def _native_backend():
+def _native_backend(device=None):
     from .native import NativeBackend
 
     return NativeBackend()
 
 
-_REGISTRY: Dict[str, Callable[[], object]] = {
+# Each factory takes an optional ``device``; the host backends ignore it.
+_REGISTRY: Dict[str, Callable[..., object]] = {
     "cuda": _cuda_backend,
-    "cpu": lambda: CpuBackend(),
+    "cpu": lambda device=None: CpuBackend(),
     "cpu-native": _native_backend,
-    "fake": lambda: FakeBackend(),
+    "fake": lambda device=None: FakeBackend(),
 }
 
 _lock = threading.Lock()
@@ -112,16 +113,20 @@ _active = None
 _active_name = None
 
 
-def register(name: str, factory: Callable[[], object]) -> None:
+def register(name: str, factory: Callable[..., object]) -> None:
+    """Add backend ``name``; ``factory(device=None)`` builds it."""
     _REGISTRY[name] = factory
 
 
-def set_backend(name: str) -> None:
+def set_backend(name: str, device=None) -> None:
+    """Activate backend ``name``. ``device`` places a device backend
+    (a caller asking for the CPU passes ``"cpu"``); the host backends
+    ignore it."""
     global _active, _active_name
     with _lock:
         if name not in _REGISTRY:
             raise KeyError(f"unknown BLS backend {name!r}; have {sorted(_REGISTRY)}")
-        _active = _REGISTRY[name]()
+        _active = _REGISTRY[name](device)
         _active_name = name
 
 

@@ -27,14 +27,17 @@ call with
      then added to the global counters once. Its wall is the function's
      eager wall;
   2. captures ``fn`` over static copies of the arguments and instantiates
-     the graph. The kernel counts of the capture (no kernel ran) go to a
+     the graph. The capture is cut into segments of at most
+     :data:`SEGMENT_LAUNCHES` kernel launches, each a ``CUDAGraph`` of its
+     own in one private pool, replayed in order (see Threads below for
+     why). The kernel counts of the capture (no kernel ran) go to a
      second sink and are kept as the graph's credit; they must equal the
      warm-up's;
   3. replays once and holds every output equal to the warm-up's
      (``torch.equal``), uncredited;
 
 * CUDA tensors at a captured key: under that graph's own lock, copies
-  each argument into its static input, replays, credits the kernel
+  each argument into its static input, replays its segments, credits the kernel
   counters (``kernels.credit``), so ``kernels.launches``/``lanes``/
   ``lane_hist`` count per call as an eager run would, and clones the
   outputs.
@@ -63,14 +66,23 @@ both); ``fp``'s fill lock is a leaf taken under neither by traffic. One
 wait remains outside these locks: CUDA itself holds back every other
 thread's CUDA calls (launches, copies, syncs, on any stream) through the
 last part of a graph's instantiation, so a warm call beside a capture
-can wait that long (the instantiation is a capture's last step). The
-capture stream is a pool stream, which CUDA creates non-blocking, so no
-other thread's work joins it through the legacy default stream, and the
+can wait that long (the instantiation is a capture's last step). That
+part grows with the graph's nodes, so a capture is cut into segments of
+:data:`SEGMENT_LAUNCHES` launches, each instantiated on its own: the wait
+is at most one segment's tail. On an NVIDIA H100 80GB HBM3 at 700 W a
+stage-3 graph of 38,700 nodes took 1.9-3.6 s to instantiate whole and
+held a warm verify beside it for up to 1.5 s; in 7 segments it
+instantiates in 0.6-1.0 s, the longest segment 0.26 s, and no warm verify
+beside a capture took more than 0.24 s (``chip_smoke.py`` phases 9-10).
+The capture stream is a pool stream, which CUDA creates non-blocking, so
+no other thread's work joins it through the legacy default stream, and the
 caching allocator sends only that stream's allocations to the graph's
 private pool. :func:`status` reports the seconds callers waited on each
 kind of lock, and per graph its capture seconds, eager warm-up seconds,
-node count (the launches captured, through ``cuGraphGetNodes``), pool bytes (the segments of its private pool in
-the allocator's snapshot) and lock waits.
+node count (the launches captured, through ``cuGraphGetNodes``, summed
+over its segments), segment count and longest segment instantiation,
+pool bytes (the segments of its private pool in the allocator's
+snapshot) and lock waits.
 """
 
 from __future__ import annotations
@@ -96,6 +108,10 @@ _lock_wait_s: dict = {}      # ("capture" | "graph", device index) -> seconds wa
 _GUARD = threading.Lock()
 _PROGRAMS: "weakref.WeakSet[CapturedProgram]" = weakref.WeakSet()
 _side_streams: dict = {}     # device index -> the capture stream
+
+# Kernel launches per captured segment: about 1,000 graph nodes in stage 1
+# and 5,500 in stage 3 (the torch ops between launches included).
+SEGMENT_LAUNCHES = 256
 
 # Opt-in device timing of replays (CUDA events around each one): a graph's
 # device time, the gaps between its nodes included.
@@ -186,14 +202,44 @@ def _tensors(out) -> tuple:
     return outs
 
 
-class _Graph:
-    """One captured key: the graph, its static inputs and outputs, the
-    kernel counts each replay credits, its lock, and what its capture
-    cost."""
+class _Segments:
+    """A capture cut into ``CUDAGraph`` segments: begins the first, and
+    after every :data:`SEGMENT_LAUNCHES`-th kernel launch (the sink's
+    ``on_launch``) ends the open segment and begins the next on the same
+    stream and private pool, so the segments replayed in order do what
+    one graph would."""
 
-    __slots__ = ("graph", "inputs", "outputs", "single", "credit", "done", "lock",
-                 "warmup_s", "capture_s", "instantiate_s", "nodes", "pool_bytes",
-                 "replays", "lock_wait_s", "steps")
+    def __init__(self):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: list = []
+        self.launches = 0
+        self._begin()
+
+    def _begin(self) -> None:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        self.graphs.append(graph)
+
+    def on_launch(self) -> None:
+        self.launches += 1
+        if self.launches % SEGMENT_LAUNCHES == 0:
+            self.graphs[-1].capture_end()
+            self._begin()
+
+    def end(self) -> list:
+        """End the open segment; the segments that hold nodes."""
+        self.graphs[-1].capture_end()
+        return [gr for gr in self.graphs if _node_count(gr)]
+
+
+class _Graph:
+    """One captured key: its graph segments, its static inputs and
+    outputs, the kernel counts each replay credits, its lock, and what its
+    capture cost."""
+
+    __slots__ = ("segments", "inputs", "outputs", "single", "credit", "done", "lock",
+                 "warmup_s", "capture_s", "instantiate_s", "instantiate_max_s", "nodes",
+                 "pool_bytes", "replays", "lock_wait_s", "steps")
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -205,6 +251,7 @@ class _Graph:
         return {
             "warmup_s": self.warmup_s, "capture_s": self.capture_s,
             "instantiate_s": self.instantiate_s,
+            "instantiate_max_s": self.instantiate_max_s, "segments": len(self.segments),
             "nodes": self.nodes, "pool_bytes": self.pool_bytes,
             "replays": self.replays, "lock_wait_s": self.lock_wait_s,
             "launches": {k: v[0] for k, v in self.credit.items()},
@@ -273,24 +320,28 @@ class CapturedProgram:
             kernels.credit(eager)
             # 2. capture over static copies of the arguments
             g.inputs = [a.clone() for a in args]
-            g.graph = torch.cuda.CUDAGraph(keep_graph=True)
             t.append(time.perf_counter())
-            with kernels.counting_into() as g.credit:
-                g.graph.capture_begin(capture_error_mode="thread_local")
+            seg = _Segments()
+            with kernels.counting_into(seg.on_launch) as g.credit:
                 try:
                     out = self.fn(*g.inputs)
                 except BaseException:
                     with contextlib.suppress(Exception):
-                        g.graph.capture_end()
+                        seg.graphs[-1].capture_end()
                     raise
-                g.graph.capture_end()
+                g.segments = seg.end()
             t.append(time.perf_counter())
-            g.graph.instantiate()
+            each = []
+            for graph in g.segments:  # one at a time: other threads wait on one tail
+                t0 = time.perf_counter()
+                graph.instantiate()
+                each.append(time.perf_counter() - t0)
             t.append(time.perf_counter())
             g.instantiate_s = t[4] - t[3]
+            g.instantiate_max_s = max(each, default=0.0)
             g.capture_s = t[4] - t[2]  # the instantiation included
-            g.pool_bytes = _pool_bytes(g.graph.pool())
-            g.nodes = _node_count(g.graph)
+            g.pool_bytes = _pool_bytes(seg.pool)
+            g.nodes = sum(_node_count(graph) for graph in g.segments)
             t.append(time.perf_counter())
             g.single = not isinstance(out, tuple)
             g.outputs = _tensors(out)
@@ -298,7 +349,8 @@ class CapturedProgram:
                 raise GraphCaptureError(
                     f"{self.name}: the capture counted launches {g.credit}, the warm-up {eager}")
             # 3. one uncredited replay, held equal to the warm-up
-            g.graph.replay()
+            for graph in g.segments:
+                graph.replay()
             side.synchronize()
             for i, (o, r) in enumerate(zip(g.outputs, ref)):
                 if not torch.equal(o, r):
@@ -321,11 +373,13 @@ class CapturedProgram:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record(stream)
-                g.graph.replay()
+                for graph in g.segments:
+                    graph.replay()
                 end.record(stream)
                 _events.append((start, end))
             else:
-                g.graph.replay()
+                for graph in g.segments:
+                    graph.replay()
             kernels.credit(g.credit)
             g.replays += 1
             return self._outputs(g, dev)

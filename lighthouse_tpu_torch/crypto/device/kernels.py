@@ -75,7 +75,7 @@ launches = {"fp_mul_cols": 0, "fp2_mul": 0, "fp2_sq": 0}
 lanes = dict.fromkeys(launches, 0)
 lane_hist = {k: Counter() for k in launches}
 _COUNT_LOCK = threading.Lock()   # the global counters, from any thread
-_tls = threading.local()         # .sink: this thread's capture sink, or None
+_tls = threading.local()         # .sink: this thread's capture sink, or None; .on_launch
 
 
 def reset_launches() -> None:
@@ -95,6 +95,8 @@ def _count(name: str, n: int) -> None:
         c, s, hist = sink[name]
         sink[name] = (c + 1, s + n, hist)
         hist[n] += 1
+        if _tls.on_launch is not None:
+            _tls.on_launch()
         return
     with _COUNT_LOCK:
         launches[name] += 1
@@ -103,18 +105,20 @@ def _count(name: str, n: int) -> None:
 
 
 @contextlib.contextmanager
-def counting_into():
+def counting_into(on_launch=None):
     """Count this thread's launches into a fresh sink instead of the
     global counters while the block runs (a capture and its warm-up,
     ``graphs.py``). Yields the sink, ``{kernel: (launches, lanes, lane
-    histogram)}``, :func:`snapshot`'s form. Other threads are unaffected."""
-    prev = getattr(_tls, "sink", None)
+    histogram)}``, :func:`snapshot`'s form. ``on_launch``, when given, is
+    called after each launch counted into the sink (a capture ends its
+    segment there). Other threads are unaffected."""
+    prev = getattr(_tls, "sink", None), getattr(_tls, "on_launch", None)
     sink = {k: (0, 0, Counter()) for k in launches}
-    _tls.sink = sink
+    _tls.sink, _tls.on_launch = sink, on_launch
     try:
         yield sink
     finally:
-        _tls.sink = prev
+        _tls.sink, _tls.on_launch = prev
 
 
 def snapshot() -> dict:

@@ -66,10 +66,16 @@ EVENT_KINDS = (
     "compile_started",        # compile_service/service.py, per AOT rung
     "deadline_miss",          # verification_service/batcher.py, SLO miss
     "fault_injected",         # utils/fault_injection.py, one per injected fault
+    "incident_opened",        # utils/watchtower.py, detector latched an incident
+    "incident_resolved",      # utils/watchtower.py, breach cleared + duration
     "key_table_reset",        # crypto/device/key_table.py, agg region recycle
     "key_table_sync",         # crypto/device/key_table.py, startup/delta rows
     "log",                    # utils/logging.py, warn/error/crit lines
+    "lookahead_epoch_warmed",  # duty_lookahead/, one per warmed epoch
+    "lookahead_insert_failed",  # duty_lookahead/, per failed pre-insert
+    "op_pool_device_agg",     # operation_pool/device_agg.py, per device merge
     "pipeline_flush",         # utils/pipeline_profiler.py, one per flush
+    "queue_shed",             # beacon_processor/processor.py
     "scheduler_bisection",    # verification_service/batcher.py, per split
     "scheduler_flush",        # verification_service/batcher.py, per batch
     "scheduler_plan",         # verification_service/batcher.py, per flush plan

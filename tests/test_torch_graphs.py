@@ -155,6 +155,46 @@ def test_capture_sink_is_isolated_from_other_threads():
     kernels.reset_launches()
 
 
+@pytest.mark.parametrize("n_launches, want_nodes", [(7, [3, 3, 1]), (6, [3, 3])])
+def test_a_capture_is_cut_into_segments_of_segment_launches(monkeypatch, n_launches,
+                                                             want_nodes):
+    """A capture ends its open CUDA graph after every
+    ``SEGMENT_LAUNCHES``-th launch counted into its sink and begins the
+    next in the same private pool, in "thread_local" mode; an empty last
+    segment is dropped. (A stand-in graph records the calls: no CUDA
+    graph exists on the CPU.)"""
+    calls = []
+
+    class Graph:
+        def __init__(self, keep_graph):
+            assert keep_graph
+            self.nodes, self.open = 0, False
+
+        def capture_begin(self, pool, capture_error_mode):
+            calls.append(("begin", pool, capture_error_mode))
+            self.open = True
+
+        def capture_end(self):
+            calls.append(("end",))
+            self.open = False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 7))
+    monkeypatch.setattr(graphs, "SEGMENT_LAUNCHES", 3)
+    monkeypatch.setattr(graphs, "_node_count", lambda graph: graph.nodes)
+    seg = graphs._Segments()
+    with kernels.counting_into(seg.on_launch) as sink:
+        for _ in range(n_launches):
+            (open_graph,) = [g for g in seg.graphs if g.open]
+            open_graph.nodes += 1  # the launch's node, then its count
+            kernels._count("fp2_sq", 4)
+        kept = seg.end()
+    assert sink["fp2_sq"][:2] == (n_launches, 4 * n_launches)
+    assert [g.nodes for g in kept] == want_nodes
+    assert calls == [("begin", (0, 7), "thread_local"), ("end",)] * 3
+    assert kernels.launches["fp2_sq"] == 0 and kernels._tls.on_launch is None
+
+
 def test_engine_triple_keys_the_graphs_and_the_seen_shapes():
     """A graph's key and ``_run_stage``'s seen-shape key name the active
     (fp, fp2, line) engines: a switched engine is a fresh key."""

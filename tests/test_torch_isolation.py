@@ -34,7 +34,7 @@ def _imports(tree):
 
 def test_no_forbidden_import_statements():
     sources = sorted(PKG.rglob("*.py"))
-    assert len(sources) >= 90
+    assert len(sources) >= 110
     names = {str(p.relative_to(PKG)) for p in sources}
     assert {"crypto/device/key_table.py", "crypto/device/msm.py",
             "crypto/device/graphs.py", "compile_service/service.py",
@@ -53,7 +53,12 @@ def test_no_forbidden_import_statements():
             "fork_choice/proto_array.py", "fork_choice/persistence.py", "store/kv.py",
             "store/hot_cold.py", "beacon_chain/chain.py", "beacon_chain/pubkey_cache.py",
             "beacon_chain/attestation_verification.py",
-            "beacon_chain/sync_committee_verification.py", "testing/harness.py"} <= names
+            "beacon_chain/sync_committee_verification.py", "testing/harness.py",
+            "operation_pool/pool.py", "operation_pool/device_agg.py",
+            "operation_pool/persistence.py", "duty_lookahead/__init__.py",
+            "beacon_processor/processor.py", "utils/watchtower.py", "utils/monitoring.py",
+            "utils/system_health.py", "utils/lockfile.py", "beacon_chain/light_client.py",
+            "http_api/server.py", "client.py", "cli.py", "__main__.py"} <= names
     bad = []
     for path in sources:
         for name in _imports(ast.parse(path.read_text(), str(path))):
@@ -92,7 +97,9 @@ print(json.dumps(added))
                 "ssz.core", "ssz.sha256", "utils.logging", "crypto.backend", "crypto.cpu.bls",
                 "crypto.cpu.pairing", "state_transition.block", "state_transition.epoch",
                 "fork_choice.fork_choice", "store.hot_cold", "beacon_chain.chain",
-                "beacon_chain.block_verification", "testing.harness"):
+                "beacon_chain.block_verification", "testing.harness",
+                "operation_pool.device_agg", "duty_lookahead", "beacon_processor.processor",
+                "utils.watchtower", "http_api.server", "client", "cli"):
         assert f"lighthouse_tpu_torch.{mod}" in ported
     leaked = [m for m in added if _forbidden(m) or m.startswith("jax")]
     assert not leaked, leaked

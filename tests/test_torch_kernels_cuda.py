@@ -197,6 +197,7 @@ def test_captured_stages_equal_eager_and_credit_eager_counts(dev):
     on the same planes (``torch.equal``), and a replay credits exactly the
     launches, lanes and lane counts of the eager run."""
     from lighthouse_tpu_torch.crypto.device import bls as dbls
+    from lighthouse_tpu_torch.crypto.device import graphs
 
     pk_xy, pk_mask, sig_x, sig_larger, msg_u, msg_idx, rand, set_mask = _stage_batch(dev)
     s1 = (sig_x, sig_larger, msg_u)
@@ -225,6 +226,11 @@ def test_captured_stages_equal_eager_and_credit_eager_counts(dev):
         kernels.reset_launches()
         got = prog(*args[name])  # a replay
         assert kernels.snapshot() == eager, name
+        # cut after every SEGMENT_LAUNCHES-th launch, an empty tail dropped
+        total = sum(n for n, _l, _h in eager.values())
+        segments = len(prog.graph_for(*args[name]).segments)
+        assert total // graphs.SEGMENT_LAUNCHES <= segments <= total // graphs.SEGMENT_LAUNCHES + 1
+        assert segments > 1, (name, total)
         got = got if isinstance(got, tuple) else (got,)
         assert len(got) == len(want)
         for i, (g, w) in enumerate(zip(got, want)):
@@ -539,10 +545,11 @@ def test_two_shard_mesh_on_one_card_loses_recovers_and_resplits(dev):
 # The beacon chain on the card
 # ---------------------------------------------------------------------------
 
-def _minimal_chain(genesis: bytes):
-    from lighthouse_tpu_torch.beacon_chain import BeaconChain
-    from lighthouse_tpu_torch.state_transition import store_replayer
-    from lighthouse_tpu_torch.store import HotColdDB, MemoryStore
+def _minimal_node(genesis: bytes, **cfg):
+    """A node built by the port's ``ClientBuilder`` on ``genesis`` (the
+    minimal preset, phase0, no HTTP, no lookahead), on a ``ManualSlotClock``.
+    Returns (client, clock, types)."""
+    from lighthouse_tpu_torch.client import ClientBuilder, ClientConfig
     from lighthouse_tpu_torch.types import types_for
     from lighthouse_tpu_torch.types.chain_spec import minimal_spec
     from lighthouse_tpu_torch.types.preset import MINIMAL
@@ -551,8 +558,10 @@ def _minimal_chain(genesis: bytes):
     t, spec = types_for(MINIMAL), minimal_spec()
     state = t.state["phase0"].decode(genesis)
     clock = ManualSlotClock(state.genesis_time, spec.seconds_per_slot, MINIMAL.SLOTS_PER_EPOCH)
-    db = HotColdDB(MemoryStore(), t, spec, store_replayer(MINIMAL, spec))
-    return BeaconChain(MINIMAL, spec, t, db, state, slot_clock=clock), clock, t
+    client = (ClientBuilder(ClientConfig(preset_base="minimal", http_enabled=False,
+                                         duty_lookahead=False, **cfg), spec)
+              .with_genesis_state(state).with_slot_clock(clock).build())
+    return client, clock, t
 
 
 def _single_attestations(h, slot: int) -> list:
@@ -580,21 +589,18 @@ def _single_attestations(h, slot: int) -> list:
 
 def test_minimal_chain_imports_and_verifies_gossip_on_card_with_the_scheduler(dev):
     """A four-slot chain (minimal preset, 64 validators, signed by the C
-    library) wired as the node wires the card: a key table over its pubkey
-    cache with the delta listener, a compile service and the scheduler,
-    the registry's default backend (``cuda``). Each block goes through
+    library) on a node built by the port's ``ClientBuilder`` with the
+    ``cuda`` backend: a mesh, a key table over its pubkey cache with the
+    delta listener, a compile service and the scheduler. Each block goes through
     ``process_block``; the last slot's unaggregated attestations, one signed
     by the wrong key, through the batch verifier. Head roots, state roots
     and verdicts equal a ``cpu-native`` chain's; K1-K3 launch."""
     from lighthouse_tpu_torch.beacon_chain import AttestationError
-    from lighthouse_tpu_torch.compile_service import service as csvc
     from lighthouse_tpu_torch.crypto import backend
-    from lighthouse_tpu_torch.crypto.device import key_table
     from lighthouse_tpu_torch.ssz import hash_tree_root
     from lighthouse_tpu_torch.testing.harness import StateHarness, native_pubkey, native_signer
     from lighthouse_tpu_torch.types.chain_spec import minimal_spec
     from lighthouse_tpu_torch.types.preset import MINIMAL
-    from lighthouse_tpu_torch.verification_service import VerificationScheduler
 
     h = StateHarness(MINIMAL, minimal_spec(), 64, signer=native_signer, pubkey_fn=native_pubkey)
     genesis = type(h.state).encode(h.state)
@@ -602,38 +608,32 @@ def test_minimal_chain_imports_and_verifies_gossip_on_card_with_the_scheduler(de
     singles = _single_attestations(h, 4)
     saved = (backend._active, backend._active_name)
     results = {}
-    svc = csvc.CompileService(rungs=[(4, 4, 4), (8, 1, 2)], device=dev)
-    csvc.set_service(svc)
-    svc.start()
     try:
-        assert svc.wait_idle(timeout=600)
         for name in ("cpu-native", "cuda"):
-            backend.set_backend(name)
-            chain, clock, t = _minimal_chain(genesis)
-            if name == "cuda":
-                table = key_table.DeviceKeyTable(chain.pubkey_cache, device=dev)
-                table.sync(reason="startup")
-                key_table.set_table(table)
-                chain.pubkey_cache.subscribe(lambda _c, _t=table: _t.sync_or_schedule("delta"))
-                chain.verification_scheduler = VerificationScheduler(compile_service=svc).start()
-                kernels.reset_launches()
-            roots = []
-            for data in blocks:
-                sb = t.signed_block["phase0"].decode(data)
-                clock.set_slot(sb.message.slot)
-                roots.append((chain.process_block(sb), hash_tree_root(chain.head_state)))
-            got = chain.batch_verify_unaggregated_attestations_for_gossip(
-                [t.Attestation.decode(b) for b in singles])
-            results[name] = (roots, ["ok" if not isinstance(r, AttestationError) else r.kind
-                                     for r in got])
-        launches = dict(kernels.launches)
-        chain.verification_scheduler.stop()
-        sets = table.status()["sets"]
-        key_table.clear_table(table)
+            client, clock, t = _minimal_node(genesis, bls_backend=name, device=str(dev),
+                                             compile_rungs=((4, 4, 4), (8, 1, 2)))
+            chain = client.chain
+            try:
+                if name == "cuda":
+                    assert chain.compile_service.wait_idle(timeout=600)
+                    kernels.reset_launches()
+                roots = []
+                for data in blocks:
+                    sb = t.signed_block["phase0"].decode(data)
+                    clock.set_slot(sb.message.slot)
+                    roots.append((chain.process_block(sb), hash_tree_root(chain.head_state)))
+                got = chain.batch_verify_unaggregated_attestations_for_gossip(
+                    [t.Attestation.decode(b) for b in singles])
+                results[name] = (roots, ["ok" if not isinstance(r, AttestationError)
+                                         else r.kind for r in got])
+                if name == "cuda":
+                    launches = dict(kernels.launches)
+                    sets = chain.device_key_table.status()["sets"]
+                    routes = chain.compile_service.status()["cold_routes"]
+            finally:
+                client.stop()
     finally:
         backend._active, backend._active_name = saved
-        svc.stop()
-        csvc.clear_service(svc)
     assert results["cuda"] == results["cpu-native"]
     roots, verdicts = results["cuda"]
     assert [r for r, _s in roots] == [hash_tree_root(t.signed_block["phase0"].decode(b).message)
@@ -641,5 +641,50 @@ def test_minimal_chain_imports_and_verifies_gossip_on_card_with_the_scheduler(de
     assert verdicts == ["ok"] * (len(singles) - 1) + ["InvalidSignature"]
     assert all(launches[k] > 0 for k in launches)
     assert sets["indexed"] + sets["collapsed"] > 0
-    print(f"chain on the card: launches {launches}, key table sets {sets}, routes "
-          f"{svc.status()['cold_routes']}")
+    print(f"chain on the card: launches {launches}, key table sets {sets}, routes {routes}")
+
+
+def _host_sum(points):
+    agg = points[0]
+    for p in points[1:]:
+        agg = agg + p
+    return agg
+
+
+def test_device_aggregator_at_512_points_equals_the_host_fold(dev):
+    """The operation pool's sync aggregate, 512 really signed messages,
+    through a ``DeviceAggregator`` on the card (the G2 sum at the top MSM
+    rung): the same bytes as the pool's host fold, counted ``ok``."""
+    from lighthouse_tpu_torch.crypto.native import native_sign
+    from lighthouse_tpu_torch.operation_pool import DeviceAggregator, OperationPool
+    from lighthouse_tpu_torch.types import types_for
+    from lighthouse_tpu_torch.types.chain_spec import mainnet_spec
+    from lighthouse_tpu_torch.types.preset import MAINNET
+    from lighthouse_tpu_torch.utils import metrics
+
+    root = bytes(range(32))
+    t = types_for(MAINNET)
+    out = {}
+    for label, agg in (("host", None), ("card", DeviceAggregator(device=dev))):
+        pool = OperationPool(MAINNET, mainnet_spec(), t, device_agg=agg)
+        for pos in range(MAINNET.SYNC_COMMITTEE_SIZE):
+            pool.insert_sync_committee_message(7, root, pos, native_sign(5000 + pos, root))
+        fam = metrics.get("op_pool_device_agg_total")
+        ok0 = fam.with_labels("ok").value
+        out[label] = t.SyncAggregate.encode(pool.sync_aggregate_for_block(7, root))
+        if agg is not None:
+            assert agg._pad_n(512) == 512
+            assert fam.with_labels("ok").value == ok0 + 1
+            assert fam.with_labels("fallback").value == 0
+    assert out["card"] == out["host"]
+
+
+def test_lookahead_row_at_128_points_equals_the_host_fold(dev):
+    """A mainnet committee's aggregate row (128 keys) from the duty
+    lookahead's device MSM on the card equals the host fold."""
+    from lighthouse_tpu_torch.crypto.cpu.curve import g1_generator
+    from lighthouse_tpu_torch.duty_lookahead import DutyLookahead
+
+    pts = [g1_generator().mul(11 + 7 * i) for i in range(128)]
+    la = DutyLookahead(lambda e: [], device=dev)
+    assert la._sum_points(pts) == (_host_sum(pts), "device")
