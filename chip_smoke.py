@@ -56,10 +56,12 @@ plain torch version on the card. Phases, in order; any failure raises:
    them), each verify journaling one ``bls_stage_verify`` event and one
    ``transfer_ledger`` row; then ``stage_latency_summary()``'s rows, and
    the warm gossip, block and gathered block verifies with every
-   telemetry knob on, off, and on but the transfer ledger's (medians side
-   by side; on against off held to max(5%, 5 ms));
-10. concurrent warm: the phase-9 service's worker is asked for two cold
-   rungs of ``DEFAULT_RUNGS`` and captures them while this thread serves
+   telemetry knob on, off, and on but the transfer ledger's
+   (``OVERHEAD_ROUNDS`` squared each, medians side by side; on against
+   off held to max(5%, 5 ms));
+10. concurrent warm: the phase-9 service's worker is asked for the cold
+   rungs ``CONCURRENT_COLD`` of ``DEFAULT_RUNGS`` and captures them while
+   this thread serves
    the warm gossip and gathered block batches in turns: each wall (under
    ``WARM_WALL_LIMIT_S``), the lock waits, each capture's span and how far
    the verifies overlapped the captures; the counters must end at the
@@ -112,7 +114,14 @@ plain torch version on the card. Phases, in order; any failure raises:
    no graph captured and flushes split again (a gathered block batch
    through ``verify_now``); a ``MESH_HANG_S`` hang on shard 1 under a
    ``MESH_WATCHDOG_S`` watchdog is reaped within the deadline plus 0.5 s
-   with right verdicts. The phase ends with no mesh attached;
+   with right verdicts; then a hang inside a graph replay on shard 1, with
+   the graph's lock held (``CapturedProgram._outputs`` wrapped here), is
+   reaped and the sets fail over to shard 0, which replays the same graph:
+   run with the failover's ``graphs.no_graph_wait`` off (the port before
+   it) and on, at ``REPLAY_HANG_S``, each with its reap and failover
+   walls; with it on, the failover must give the
+   right verdict within the deadline. The phase ends with no mesh
+   attached;
 12c. telemetry, with the phase-9 service and phase 12's pools: one more
    ``TELEMETRY_DURATION_S`` pass of ``traffic.gossip_steady`` (seed 2) with
    the slot ledger and the capacity estimator reset and its sampler
@@ -146,11 +155,25 @@ plain torch version on the card. Phases, in order; any failure raises:
    over HTTP (a 512-point sync aggregate; not imported), and every pool
    sum must take the device path. A second node, built the same way in
    its own process (the key table seam is one a process) with its own
-   compile service warming ``CHAIN_SEGMENT_RUNGS``, imports the same
-   blocks ``CHAIN_SEGMENT_BLOCKS`` at a time through
-   ``process_chain_segment`` (the bulk class). A third node in its own
+   compile service warming ``CHAIN_SEGMENT_RUNGS``, gets the same blocks
+   over the port's network: it dials the oracle below and range-syncs
+   from it (``RangeSync`` pulling ``blocks_by_range`` over the Noise +
+   snappy transport, each batch ``CHAIN_SEGMENT`` work for the beacon
+   processor: ``process_chain_segment``, the bulk class), re-statusing
+   the oracle each time its head reaches a mark (``sync_marks``: every
+   ``CHAIN_SEGMENT_BLOCKS`` slots and the last), so the sync overlaps the
+   chain; no flush may shed to the host. A late joiner, built the same
+   way in a process of its own with a compile service warming
+   ``CATCH_UP_RUNGS``, dials the oracle only once its head has reached
+   ``RangeSync.BATCH`` and syncs from genesis, so its first batch is a
+   whole ``RangeSync.BATCH`` (32) blocks in one ``process_chain_segment``
+   call; it runs on beside phase 12e and is read after it
+   (``catch_up_result``: every root equal to the oracle's, no flush shed,
+   K1-K3 launched, its segment walls, its lane counts for phase 13). A
+   third node in its own
    process, on ``cpu-native`` (its pool has no aggregator: every sum is
-   the host fold), is the oracle: every head root, post-state root,
+   the host fold) and listening on the network, is the oracle: every
+   head root, post-state root,
    verdict, contribution and produced block of both must equal its own,
    each produced sync aggregate must verify there, and K1-K3 must launch
    in both card nodes. Printed: the block-import wall (median, p90) and
@@ -160,15 +183,25 @@ plain torch version on the card. Phases, in order; any failure raises:
    validator admitted through the pubkey cache (the harness makes no
    deposits), and the node's two device callers (the lookahead's MSM at
    N=128, the pool's G2 sums at 128 and 512 points) called once more
-   alone against the host fold with their launches; the phase's lane
-   counts join phase 13's;
-12e. the entry point: ``python -m lighthouse_tpu_torch bn --bls-backend
-   cuda`` at the minimal preset (64 interop validators, HTTP on a free
-   port, a data directory) in a subprocess must come up, answer
-   ``/eth/v1/node/health``, ``/lighthouse/health`` and ``/metrics``
-   (Prometheus text), warm its one compile rung (``BN_RUNG``) and exit
-   with 0 within ``BN_EXIT_S`` of SIGTERM, leaving no lock file, all
-   within ``BN_BUDGET_S``;
+   alone against the host fold with their launches; the segment node's
+   sync: blocks and batches (``sync_range_*``), the bytes it read from the
+   wire, the sync wall and each segment's; the phase's lane counts join
+   phase 13's;
+12e. the devnet (``devnet_phase``): ``python -m lighthouse_tpu_torch bn
+   --bls-backend cuda --listen-port P`` at the minimal preset (64 interop
+   validators, its compile service holding ``DEVNET_RUNGS``), a second
+   ``bn --bls-backend cpu-native --boot-nodes 127.0.0.1:P`` and ``vc
+   --interop-keys 0:64`` on the card bn, genesis ``DEVNET_GENESIS_S`` after
+   the launch, for ``DEVNET_SLOTS`` slots of the system clock: the card bn
+   answers health, ``/lighthouse/health`` and ``/metrics`` (Prometheus
+   text) with its rung warm before genesis; the vc proposes and attests
+   through its HTTP API; both heads end equal and 3 or more slots past
+   genesis; the card bn's ``/metrics`` show its verifies on the card, K1-K3
+   launched and no flush shed; the vc's slashing-protection database holds
+   every canonical block; each process exits 0 within ``BN_EXIT_S`` of
+   SIGTERM with no lock file, all within ``DEVNET_BUDGET_S``. The card
+   bn's own launches by lane count from the vc's start to its stop (its
+   ``/lighthouse/health`` ``kernels`` block) join phase 13's;
 13. kernel timings where the path runs them: each kernel checked again and
    timed (device ms per launch, launches queued back to back behind a
    device sleep, CUDA events) with its plain version and its bound at 1
@@ -239,17 +272,20 @@ LANE_BYTES = {"fp_mul_cols": 3 * 32 * 4, "fp2_mul": 3 * 64 * 4, "fp2_sq": 2 * 64
 REGISTRY_SIZE = 1 << 19
 # The warm phase's compile service walks the batches' rungs, then this many
 # of the default rungs (a rung's three captures take about 10 s on an H100,
-# so the whole ladder would take minutes); and waits this long for them.
-WARM_DEFAULT_RUNGS = 3
+# so the whole ladder would take minutes; one keeps the script inside its
+# time limit); and waits this long for them.
+WARM_DEFAULT_RUNGS = 1
 WARM_TIMEOUT_S = 600
 # The concurrent-warm phase queues these rungs of DEFAULT_RUNGS (by index;
 # cold after phase 9) on the compile service's worker while this thread
 # serves warm batches, whose walls must stay under WARM_WALL_LIMIT_S (a
-# stage-3 capture alone takes 2.4 s or more on an H100).
-CONCURRENT_COLD = (3, 5)
+# stage-3 capture alone takes 2.4 s or more on an H100; one rung's three
+# captures keep the script inside its time limit).
+CONCURRENT_COLD = (3,)
 WARM_WALL_LIMIT_S = 1.0
 # The engine phase's (fp, fp2, line) engine triples, each verified on the
-# gossip batch (its first verify captures the rung under that triple).
+# gossip batch (its first verify captures the rung under that triple, about
+# 40 s under a composed fp engine).
 ENGINE_TRIPLES = (("toeplitz_int32", "composed", "composed"),
                   ("matmul_int8", "composed", "composed"),
                   ("pallas_int8", "composed", "composed"))
@@ -257,7 +293,7 @@ ENGINE_TRIPLES = (("toeplitz_int32", "composed", "composed"),
 # rates (40 unaggregated, 12 aggregates, 6 sync messages per second) for
 # this many seconds; its pools: committees of 8 signers (one attestation
 # message each) and sync-committee signers over one block root.
-SERVE_DURATION_S = 6.0
+SERVE_DURATION_S = 3.0
 SERVE_COMMITTEES = 7
 SERVE_SYNC = 16
 # the shed pass's second compile service warms only this rung: the
@@ -267,12 +303,19 @@ SERVE_SHED_RUNG = (1, 1, 1)
 # (seed 1) through the scheduler; the split passes' planner puts a kind
 # group on two shards from 2 x MESH_DP_MIN_SETS sets; the probe backoff of
 # the two-shard mesh; the watchdog's deadline and the injected hang
-MESH_DURATION_S = 3.0
+MESH_DURATION_S = 2.0
 MESH_DP_MIN_SETS = 2
 MESH_PROBE_BASE_S = 0.5
 MESH_PROBE_MAX_S = 2.0
 MESH_WATCHDOG_S = 2.0
 MESH_HANG_S = 4.0
+# mesh step 6: the hang inside a replay, longer than the watchdog's
+# deadline by more than the deadline again (so a failover that waits on the
+# lock is reaped too)
+REPLAY_HANG_S = 5.0
+# phase 9's telemetry overhead: rounds of verifies per mode and batch (the
+# same count of verifies in each round)
+OVERHEAD_ROUNDS = 2
 # The telemetry phase: one more pass of traffic.gossip_steady (seed 2) this
 # long, with the capacity sampler ticking at this interval (the node's
 # default is 10 s, longer than the pass)
@@ -294,8 +337,22 @@ CHAIN_VALIDATORS = 16384
 CHAIN_SLOTS = 33
 CHAIN_GOSSIP_BATCH = 64
 CHAIN_SEGMENT_BLOCKS = 8
+# the segment node's status polls of the oracle: within the status quota of
+# the port's peer manager (a burst of 8, then one a second)
+STATUS_POLL_S = 2.0
 CHAIN_RUNGS = ((64, 1, 8), (16, 128, 16), (512, 1, 1), (8, 512, 8), (8, 1, 8))
-CHAIN_SEGMENT_RUNGS = ((64, 512, 64), (64, 128, 64))
+# an 8-block segment is 7 sets a block (56, the 64 rung); the 128 rung
+# holds a range-sync batch of up to 18 blocks, should the oracle's head run
+# past a mark before the node asks
+CHAIN_SEGMENT_RUNGS = ((64, 512, 64), (64, 128, 64), (128, 512, 128))
+# the late joiner's rung: its first range-sync batch is RangeSync.BATCH
+# (32) blocks, about 7 sets a block (224, the 256 rung; up to 512 keys
+# in the sync aggregate's set, a message a set at most); the last block
+# pads onto it
+CATCH_UP_RUNGS = ((256, 512, 256),)
+# RangeSync waits this long for a batch's import before its thread gives
+# up until the next status (network/service.py)
+RANGE_SYNC_WAIT_S = 60.0
 CHAIN_TIMEOUT_S = 600
 # The node around the chain: the committees a slot at CHAIN_VALIDATORS
 # (each 128 wide), the epoch whose committees the duty lookahead must warm
@@ -308,10 +365,26 @@ CHAIN_COMMITTEES_A_SLOT = 4
 CHAIN_LOOKAHEAD_EPOCH = 1
 CHAIN_CONTRIB_SLOTS = (8, 16, 24, 32)
 CHAIN_PRODUCE_SLOTS = (17, 33)
-# Phase 12e: the bn process's one compile rung, its budget and the time it
-# has to exit after SIGTERM.
-BN_RUNG = (4, 1, 1)
-BN_BUDGET_S = 60.0
+# Phase 12e, the devnet: 64 interop validators at the minimal preset
+# (phase0: two committees of four a slot). The card bn's compile rung holds
+# every flush the validator client's submissions and the blocks make (an
+# aggregate's three sets; a block's proposal, RANDAO and the pool's
+# attestations, more than 16 sets at times; K <= 4). The rest of
+# DEVNET_RUNGS are the smaller geometries the devnet's flushes land on,
+# warmed after it (before genesis, most times), so the bn has no capture
+# left to finish when it stops. Genesis comes DEVNET_GENESIS_S after the
+# launch, so both bns are up and the first rung is warm before the first
+# slot (with the late joiner of phase 12d still syncing beside them); the
+# devnet runs DEVNET_SLOTS slots of the system clock, and each process has
+# BN_EXIT_S to exit after SIGTERM.
+DEVNET_VALIDATORS = 64
+DEVNET_RUNGS = ((64, 4, 64), (16, 4, 16), (8, 4, 8), (4, 4, 4), (1, 1, 1))
+DEVNET_RUNG = DEVNET_RUNGS[0]
+DEVNET_GENESIS_S = 40.0
+DEVNET_VC_LEAD_S = 5.0   # the vc starts at least this long before genesis
+DEVNET_EXIT_ROOM_S = 4.0  # of the budget, left for the two bns' exits (both at once)
+DEVNET_SLOTS = 4
+DEVNET_BUDGET_S = 90.0
 BN_EXIT_S = 10.0
 # The MSM phase's point counts: the top MSM rung (a mainnet committee) for
 # G1 with random u64 scalars, and 128 points for the G2 sum.
@@ -2030,9 +2103,9 @@ def mesh_phase(svc, table, pools, poisoned, serve_warm, backend, gbsets, dev) ->
     class StampedScheduler(VerificationScheduler):
         # stamps each watched dispatch on the flush thread, before the
         # watchdog starts its worker and its deadline
-        def _dispatch_on(self, verify, sets, shard, deadline_s):
+        def _dispatch_on(self, verify, sets, shard, deadline_s, **kw):
             starts.append((time.time(), shard))
-            return super()._dispatch_on(verify, sets, shard, deadline_s)
+            return super()._dispatch_on(verify, sets, shard, deadline_s, **kw)
 
     seq_wd = _journal_seq()
     chaos["hang_s"] = MESH_HANG_S
@@ -2066,6 +2139,10 @@ def mesh_phase(svc, table, pools, poisoned, serve_warm, backend, gbsets, dev) ->
               "shard 1 back after the reap")
     out["watchdog"] = {"pass": wd, "reap_s": reap_s, "reaps": len(reaps),
                        "reaped_total": reaped_total}
+
+    # 6. a hang inside a replay, with the graph's lock held
+    with held_collapse(table2):
+        out["replay_hang"] = replay_hang_step(mesh2, backend, gbsets)
     out["final_status"] = mesh2.status()
     mesh2.stop_recovery()
     mesh_mod.clear_mesh(mesh2)
@@ -2078,6 +2155,87 @@ def mesh_phase(svc, table, pools, poisoned, serve_warm, backend, gbsets, dev) ->
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"mesh phase: {out['wall_s']:.1f} s; {card_line()}")
     return out
+
+
+def replay_hang_step(mesh2, backend, sets) -> dict:
+    """Mesh step 6: a dispatch on shard 1 hangs inside a graph replay,
+    after the graph's lock is taken (``CapturedProgram._outputs``, called
+    under the lock, is wrapped here to sleep), the watchdog reaps it after
+    ``MESH_WATCHDOG_S``, and the scheduler fails the sets over to shard 0,
+    whose replay is of the same graph: both shards are on the one card.
+    Run twice at ``REPLAY_HANG_S``: with the failover's
+    ``graphs.no_graph_wait`` turned off (the port before the fix), then
+    on. Per run: the reap's wall, the failover's wall
+    and verdict (or the error that replaced it), its graph-lock wait and
+    the eager runs beside the busy graph. With the fix on the failover
+    must give the right verdict within the watchdog's deadline."""
+    import contextlib
+    import threading
+
+    from lighthouse_tpu_torch.crypto.device import graphs
+    from lighthouse_tpu_torch.crypto.device import mesh as mesh_mod
+    from lighthouse_tpu_torch.verification_service import VerificationScheduler
+    from lighthouse_tpu_torch.verification_service.batcher import WatchdogTimeout
+
+    sched = VerificationScheduler(verify_fn=backend.verify_signature_sets,
+                                  watchdog_s=MESH_WATCHDOG_S)
+    outputs = graphs.CapturedProgram.__dict__["_outputs"]
+    arm = {"hang_s": 0.0}
+    arm_lock = threading.Lock()
+
+    def hung_outputs(g, dev):
+        if mesh_mod.current_shard() == 1:
+            with arm_lock:
+                hang_s, arm["hang_s"] = arm["hang_s"], 0.0
+            if hang_s:
+                time.sleep(hang_s)
+        return outputs.__func__(g, dev)
+
+    no_wait = graphs.no_graph_wait
+    runs = {}
+    graphs.CapturedProgram._outputs = staticmethod(hung_outputs)
+    try:
+        for label, hang_s, fixed in (("before the fix", REPLAY_HANG_S, False),
+                                     ("the fix", REPLAY_HANG_S, True)):
+            graphs.no_graph_wait = no_wait if fixed else contextlib.nullcontext
+            waits0 = graphs.status()["lock_wait_s"]["graph"]
+            eager0 = graphs.status()["failover_eager"]
+            arm["hang_s"] = hang_s
+            t0 = time.perf_counter()
+            try:
+                sched._dispatch_on(sched._verify, sets, 1, MESH_WATCHDOG_S)
+                raise AssertionError("mesh 6: the hung replay was not reaped")
+            except WatchdogTimeout as e:
+                reap_s = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                try:
+                    verdict = sched._failover_retry(sched._verify, sets, 1, e, mesh2)
+                except WatchdogTimeout as e2:
+                    verdict = f"reaped again: {e2}"
+                failover_s = time.perf_counter() - t1
+            for th in threading.enumerate():  # the reaped dispatches run on
+                if th.name.startswith("dispatch-wd-"):
+                    th.join(timeout=hang_s + 60)
+            st = graphs.status()
+            wait = sum(st["lock_wait_s"]["graph"].values()) - sum(waits0.values())
+            eager = sum(st["failover_eager"].values()) - sum(eager0.values())
+            runs[f"{label}, hang {hang_s:g} s"] = rec = {
+                "hang_s": hang_s, "fixed": fixed, "reap_s": reap_s, "failover_s": failover_s,
+                "verdict": verdict, "graph_lock_wait_s": wait, "failover_eager": eager}
+            log(f"mesh 6 ({label}): a {hang_s:g} s hang inside shard 1's replay, lock held: "
+                f"reaped after {reap_s:.3f} s; the failover to shard 0 (the same graph) "
+                f"took {failover_s:.3f} s, verdict {verdict}, graph-lock wait {wait:.3f} s, "
+                f"eager runs beside the busy graph {eager}")
+            _wait_for(lambda: mesh2.healthy_shards() == [0, 1], MESH_PROBE_MAX_S * 2 + 30,
+                      "shard 1 back after the replay hang")
+    finally:
+        graphs.CapturedProgram._outputs = outputs
+        graphs.no_graph_wait = no_wait
+    fixed = [r for r in runs.values() if r["fixed"]]
+    if any(r["verdict"] is not True or r["failover_s"] > MESH_WATCHDOG_S
+           or r["failover_eager"] < 1 for r in fixed):
+        raise AssertionError(f"mesh 6: with no_graph_wait the failover {fixed}")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2186,19 +2344,20 @@ def set_telemetry(mode: str) -> None:
 
 def telemetry_overhead(backend, batches) -> dict:
     """Each warm batch verified with every telemetry knob on, off, and on
-    but the transfer ledger's, in three rounds of three each: the medians
-    side by side, and the on median's excess over off against max(5%,
-    5 ms). The knobs end at their defaults (tracing off)."""
+    but the transfer ledger's, in ``OVERHEAD_ROUNDS`` rounds of
+    ``OVERHEAD_ROUNDS`` each: the medians side by side, and the on
+    median's excess over off against max(5%, 5 ms). The knobs end at their
+    defaults (tracing off)."""
     from lighthouse_tpu_torch.utils import tracing
 
     modes = ("on", "off", "ledger off")
     walls = {label: {m: [] for m in modes} for label in batches}
     try:
-        for _round in range(3):
+        for _round in range(OVERHEAD_ROUNDS):
             for mode in modes:
                 set_telemetry(mode)
                 for label, (sets, want) in batches.items():
-                    for _ in range(3):
+                    for _ in range(OVERHEAD_ROUNDS):
                         torch.cuda.current_stream().synchronize()
                         t0 = time.perf_counter()
                         if backend.verify_signature_sets(sets) is not want:
@@ -2217,7 +2376,7 @@ def telemetry_overhead(backend, batches) -> dict:
                       "excess_s": on - off, "within": on - off <= limit}
         log(f"  telemetry overhead, {label}: median {on:.4f} s with every knob on, "
             f"{off:.4f} s with every knob off, {nol:.4f} s with every knob on but the "
-            f"transfer ledger's (9 verifies each): on {on - off:+.4f} s "
+            f"transfer ledger's ({OVERHEAD_ROUNDS ** 2} verifies each): on {on - off:+.4f} s "
             f"({(on - off) / off:+.2%}) over off, "
             f"{'within' if on - off <= limit else 'OVER'} max(5%, 5 ms)")
     return out
@@ -2458,17 +2617,19 @@ def chain_producer(outq, n: int, slots: int) -> None:
     outq.put(None)
 
 
-def chain_signer(inq, outqs) -> None:
+def chain_signer(inq, outqs, genesis_qs) -> None:
     """The signer process: signs each slot's planned gossip with the C
     library on eight threads (it releases the GIL) and sends every slot's
-    block and gossip, as SSZ bytes, to each of ``outqs``."""
+    block and gossip, as SSZ bytes, to each of ``outqs``; the genesis alone
+    goes to ``genesis_qs`` too (the segment node, which gets its blocks by
+    range sync)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from lighthouse_tpu_torch.crypto.native import native_sign
 
     _preset, _spec, t = chain_spec_and_types()
     genesis = inq.get()
-    for q in outqs:
+    for q in [*outqs, *genesis_qs]:
         q.put(genesis)
     with ThreadPoolExecutor(8) as pool:
         while (msg := inq.get()) is not None:
@@ -2639,33 +2800,71 @@ def check_sync_aggregate(client, produced) -> None:
                              "does not verify")
 
 
-def chain_oracle(inq, outq, n: int) -> None:
+def chain_oracle(inq, outq, n: int, port_q, late_port_q, done_q) -> None:
     """The oracle process: the same node on ``cpu-native`` (so its
     operation pool has no device aggregator: every aggregate is the host
     fold) with the backend called directly, no scheduler, fed the
     producer's bytes; one result per slot on ``outq``, then None. Every
-    block it produces must carry a sync aggregate that verifies here."""
+    block it produces must carry a sync aggregate that verifies here. It
+    listens on the port's network (``listen_port=0``) and puts its port on
+    ``port_q`` (for the segment node) and, once its head reaches
+    ``RangeSync.BATCH``, on ``late_port_q`` (for the late joiner): both
+    range-sync from it, and the oracle serves until both say on ``done_q``
+    that they are done, after its results and None have gone to
+    ``outq``."""
+    import queue
+
+    from lighthouse_tpu_torch.network.service import RangeSync
+
     client, clock, t = chain_node(inq.get()[1], n, bls_backend="cpu-native",
-                                  verification_scheduler=False)
+                                  verification_scheduler=False, listen_port=0)
+    port_q.put(client.network.port)
     if client.chain.op_pool._device_agg is not None:
         raise AssertionError("chain oracle: the pool has a device aggregator")
+    late = None
     while (msg := inq.get()) is not None:
         r = chain_slot(client, clock, t, msg)
         if r["produced"] is not None:
             check_sync_aggregate(client, r["produced"])
         outq.put(r)
-    client.stop()
+        if late is None and r["slot"] >= RangeSync.BATCH:
+            late_port_q.put(late := client.network.port)
+    if late is None:  # a chain shorter than one batch
+        late_port_q.put(client.network.port)
+    outq.put(("network", _net_view(client.network)))
     outq.put(None)
+    try:  # serve both syncing nodes until they are done
+        for _ in range(2):
+            done_q.get(timeout=2 * CHAIN_TIMEOUT_S)
+    except queue.Empty:
+        pass
+    client.stop()
 
 
-def chain_segment(inq, outq, n: int, device_index: int) -> None:
+def chain_segment(inq, outq, n: int, slots: int, device_index: int, port_q,
+                  done_q, late: bool = False) -> None:
     """The segment chain's process, on the card: a node with its own
-    compile service (warming ``CHAIN_SEGMENT_RUNGS``), key table and
-    scheduler, no HTTP and no lookahead. It imports the blocks
-    ``CHAIN_SEGMENT_BLOCKS`` at a time through ``process_chain_segment``
-    (the scheduler's bulk class) and puts one result on ``outq``: the
-    roots, walls, K1-K3 launches and lanes."""
+    compile service (warming ``CHAIN_SEGMENT_RUNGS``), key table,
+    scheduler and network (``listen_port=0``), no HTTP and no lookahead.
+    It dials the oracle (its port from ``port_q``) and gets the blocks by
+    range sync over the port's Noise + snappy transport: each time the
+    oracle's status shows its head at the next of ``sync_marks``, the
+    status goes to the node's ``RangeSync``, which pulls
+    ``blocks_by_range`` (``RangeSync.BATCH`` at most) and hands them to the
+    beacon processor as ``CHAIN_SEGMENT`` work: ``process_chain_segment``
+    through the scheduler's bulk class and the card. Puts one result on
+    ``outq``: the roots, the segment and sync walls, the bytes it read from
+    the wire, the sync counters, K1-K3 launches and lanes.
+
+    With ``late`` it is the late joiner: warming ``CATCH_UP_RUNGS``, it
+    gets the oracle's port only once the oracle's head has reached
+    ``RangeSync.BATCH`` and then syncs from genesis, so its first batch
+    is a whole ``RangeSync.BATCH`` of blocks, as a node that joins a
+    running network pulls; then the rest up to ``slots``."""
+    import threading
+
     from lighthouse_tpu_torch.crypto.device import kernels
+    from lighthouse_tpu_torch.network.service import PROTO_STATUS, RangeSync
     from lighthouse_tpu_torch.ssz import hash_tree_root
 
     if device_index >= 0:
@@ -2675,34 +2874,112 @@ def chain_segment(inq, outq, n: int, device_index: int) -> None:
         node = {"bls_backend": "cuda", "device": str(dev)}
     else:  # a CPU rehearsal: the C verifier, no device wiring
         node = {"bls_backend": "cpu-native"}
+    label = "chain catch-up" if late else "chain segment"
     client, clock, t = chain_node(inq.get()[1], n, http_enabled=False, duty_lookahead=False,
-                                  compile_rungs=CHAIN_SEGMENT_RUNGS, **node)
-    chain = client.chain
+                                  compile_rungs=CATCH_UP_RUNGS if late else CHAIN_SEGMENT_RUNGS,
+                                  listen_port=0, **node)
+    chain, net = client.chain, client.network
     svc, table = chain.compile_service, chain.device_key_table
     if svc is not None and not svc.wait_idle(timeout=WARM_TIMEOUT_S):
-        raise AssertionError("chain segment: the compile service did not warm its rungs")
-    kernels.reset_launches()
-    roots, walls, pending = [], [], []
-    last = False
-    while not last:
-        msg = inq.get()
-        last = msg is None
-        if msg is not None:
-            pending.append(t.signed_block["altair"].decode(msg[2]))
-        if pending and (last or len(pending) == CHAIN_SEGMENT_BLOCKS):
-            clock.set_slot(pending[-1].message.slot)  # a syncing node: the range is past
-            s0 = time.perf_counter()
-            roots += [r.hex() for r in chain.process_chain_segment(pending)]
-            walls.append(time.perf_counter() - s0)
-            pending = []
+        raise AssertionError(f"{label}: the compile service did not warm its rungs")
+    roots, walls, lock = [], [], threading.Lock()
+    segment = chain.process_chain_segment
+
+    def timed_segment(blocks):  # the beacon processor's CHAIN_SEGMENT handler calls this
+        s0 = time.perf_counter()
+        got = segment(blocks)
+        with lock:
+            walls.append((len(blocks), time.perf_counter() - s0))
+            roots.extend(r.hex() for r in got)
+        return got
+
+    chain.process_chain_segment = timed_segment
+    clock.set_slot(slots)  # a syncing node: the whole range lies in its past
+    try:
+        port = port_q.get(timeout=2 * CHAIN_TIMEOUT_S if late else CHAIN_TIMEOUT_S)
+        kernels.reset_launches()
+        b0, n0 = _counter("sync_range_batches_total"), _counter("sync_range_blocks_total")
+        peer = net.connect("127.0.0.1", port)
+        if peer is None:
+            raise AssertionError(f"{label}: could not dial the oracle on port {port}")
+        wire = [0]
+        read_exact = peer._read_exact
+
+        def counted(k):  # every byte the node reads from the oracle
+            got = read_exact(k)
+            wire[0] += len(got or b"")
+            return got
+
+        peer._read_exact = counted
+        marks = (sorted({min(RangeSync.BATCH, slots), slots}) if late
+                 else sync_marks(slots))
+        t_sync = waited = None
+        for mark in marks:
+            w0 = time.perf_counter()
+            while True:  # the oracle's status, polled until its head reaches the mark
+                raw = peer.request(PROTO_STATUS.encode(), json.dumps(net.local_status()).encode(),
+                                   timeout=CHAIN_TIMEOUT_S)
+                if not raw:
+                    raise AssertionError(f"{label}: the oracle did not answer a status "
+                                         f"request ({peer.closed and 'closed' or 'refused'}): "
+                                         f"{json.dumps(_net_view(net), default=str)}")
+                status = json.loads(raw)
+                if int(status["head_slot"]) >= mark:
+                    break
+                if time.perf_counter() - w0 > CHAIN_TIMEOUT_S:
+                    raise AssertionError(f"{label}: the oracle's head never reached {mark}")
+                time.sleep(STATUS_POLL_S)
+            if t_sync is None:
+                t_sync, waited = time.perf_counter(), 0.0
+            else:
+                waited += time.perf_counter() - w0
+            net.sync.on_status(peer, status)
+            _wait_for(lambda: chain.head_state.slot >= mark, CHAIN_TIMEOUT_S,
+                      f"the range sync to slot {mark}", label=label)
+        sync_s = time.perf_counter() - t_sync
+    finally:
+        done_q.put(True)  # the oracle may stop serving now
     routes = svc.status()["cold_routes"] if svc is not None else {}
     sets = table.status()["sets"] if table is not None else {}
+    view = _net_view(net)
     client.stop()
     outq.put({"roots": roots, "head": chain.head_block_root.hex(),
-              "state_root": hash_tree_root(chain.head_state).hex(), "walls": walls,
+              "state_root": hash_tree_root(chain.head_state).hex(),
+              "walls": [w for _n, w in walls], "blocks_per_segment": [k for k, _w in walls],
+              "sync_s": sync_s, "waited_s": waited, "wire_bytes": wire[0],
+              "sync_batches": _counter("sync_range_batches_total") - b0,
+              "sync_blocks": _counter("sync_range_blocks_total") - n0,
+              "range_batch": RangeSync.BATCH, "marks": marks, "network": view,
               "launches": dict(kernels.launches),
               "lane_hist": {k: dict(h) for k, h in kernels.lane_hist.items()},
               "key_table": sets, "routes": routes})
+
+
+def _net_view(net) -> dict:
+    """A node's view of its network: its peers (closed or not), the
+    requests its rate limiter refused and the penalties and bans it
+    journaled."""
+    from lighthouse_tpu_torch.utils import flight_recorder
+
+    return {"peers": [[p.node_id[:12], p.closed, p.remote_listen_port]
+                      for p in net.transport.peers_snapshot()],
+            "rate_limited": _counter("network_rate_limited_total"),
+            "penalties": [e["fields"] for e in
+                          flight_recorder.events(["peer_penalty", "peer_ban"])][-8:]}
+
+
+def sync_marks(slots: int) -> list:
+    """The oracle heads at which the segment node re-statuses it: every
+    ``CHAIN_SEGMENT_BLOCKS`` slots and the last slot."""
+    return sorted({*range(CHAIN_SEGMENT_BLOCKS, slots + 1, CHAIN_SEGMENT_BLOCKS), slots})
+
+
+def _counter(name: str) -> float:
+    """An unlabeled family's value (0 when absent)."""
+    from lighthouse_tpu_torch.utils import metrics
+
+    fam = metrics.get(name)
+    return 0.0 if fam is None else fam.value
 
 
 def extra_validator(state) -> int:
@@ -2740,8 +3017,11 @@ def run_helper(fn, *args) -> None:
 
 def chain_phase(dev, slots: int = None, n: int = None, prewarm=None) -> dict:
     """The port's beacon node on the card (see the module docstring):
-    starts the producer, signer, segment and oracle processes, runs the
-    block chain's node here, and stops every process it started.
+    starts the producer, signer, segment, late joiner and oracle
+    processes, runs the block chain's node here, and stops the producer,
+    signer and segment processes. The late joiner and the oracle serving
+    it run on: ``out["catch_up"]`` is the handle that :func:`catch_up_result`
+    reads and stops them with (a failure here stops them too).
     ``prewarm``, a started compile service, captures ``CHAIN_RUNGS`` while
     the producer builds the genesis state, so the node's own service then
     finds their graphs."""
@@ -2753,31 +3033,106 @@ def chain_phase(dev, slots: int = None, n: int = None, prewarm=None) -> dict:
     n = n or CHAIN_VALIDATORS
     t_phase = time.perf_counter()
     ctx = mp.get_context("spawn")
-    planq, to_main, to_oracle, to_segment, from_oracle, from_segment = (
-        ctx.Queue() for _ in range(6))
+    (planq, to_main, to_oracle, to_segment, to_late, from_oracle, from_segment, from_late,
+     port_q, late_port_q, done_q) = (ctx.Queue() for _ in range(11))
     seg_dev = dev.index if dev.type == "cuda" else -1
-    procs = [ctx.Process(target=run_helper, name=fn.__name__, args=(fn, *args), daemon=True)
-             for fn, args in ((chain_producer, (planq, n, slots)),
-                              (chain_signer, (planq, [to_main, to_oracle, to_segment])),
-                              (chain_oracle, (to_oracle, from_oracle, n)),
-                              (chain_segment, (to_segment, from_segment, n, seg_dev)))]
+    procs = [ctx.Process(target=run_helper, name=name, args=(fn, *args), daemon=True)
+             for name, fn, args in (
+                 ("chain_producer", chain_producer, (planq, n, slots)),
+                 ("chain_signer", chain_signer, (planq, [to_main, to_oracle],
+                                                 [to_segment, to_late])),
+                 ("chain_segment", chain_segment, (to_segment, from_segment, n, slots,
+                                                   seg_dev, port_q, done_q)),
+                 ("chain_oracle", chain_oracle, (to_oracle, from_oracle, n, port_q,
+                                                 late_port_q, done_q)),
+                 ("chain_catch_up", chain_segment, (to_late, from_late, n, slots, seg_dev,
+                                                    late_port_q, done_q, True)))]
     for p in procs:
         p.start()
     prev_clock = slot_clock.get_clock()
+    ok = False
     try:
         out = _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm)
+        ok = True
     finally:
         slot_clock.set_clock(prev_clock)
-        for p in procs:
+        for p in procs[:3] if ok else procs:
             p.join(timeout=10)
             if p.is_alive():
                 p.kill()
                 p.join()
-    bad = {p.name: p.exitcode for p in procs if p.exitcode}
+    bad = {p.name: p.exitcode for p in procs[:3] if p.exitcode}
     if bad:
         raise AssertionError(f"chain: a helper process failed (exit codes {bad})")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"chain phase wall {out['wall_s']:.1f} s; {card_line()}")
+    out["catch_up"] = {"procs": procs[3:], "queue": from_late, "slots": slots,
+                       "oracle": out.pop("oracle_chain")}
+    return out
+
+
+def stop_catch_up(handle) -> None:
+    """Stop the late joiner and the oracle of ``handle``, wherever they
+    are."""
+    for p in handle["procs"]:
+        if p.is_alive():
+            p.kill()
+        p.join()
+
+
+def catch_up_result(handle) -> dict:
+    """The late joiner's result (phase 12d's catch-up, which runs on
+    while phase 12e does): waits for it, stops the late joiner and the
+    oracle, and holds it to the oracle's chain. Its first range-sync batch
+    must be ``RangeSync.BATCH`` blocks (one ``process_chain_segment`` call),
+    every root equal to the oracle's, no flush shed to the host and K1-K3
+    launched."""
+    import queue
+
+    from lighthouse_tpu_torch.network.service import RangeSync
+
+    t0 = time.perf_counter()
+    try:
+        late = handle["queue"].get(timeout=2 * CHAIN_TIMEOUT_S)
+    except queue.Empty:
+        stop_catch_up(handle)
+        raise AssertionError("chain catch-up: the late joiner sent no result")
+    waited = time.perf_counter() - t0
+    for p in handle["procs"]:
+        p.join(timeout=30)
+    stop_catch_up(handle)
+    bad = {p.name: p.exitcode for p in handle["procs"] if p.exitcode}
+    if bad:
+        raise AssertionError(f"chain catch-up: a helper process failed (exit codes {bad})")
+    slots, oracle = handle["slots"], handle["oracle"]
+    first = min(RangeSync.BATCH, slots)
+    if (late["roots"] != oracle["roots"] or late["head"] != oracle["head"]
+            or late["state_root"] != oracle["state_root"]):
+        raise AssertionError("chain catch-up: the late joiner's roots differ from cpu-native's")
+    if (late["sync_blocks"] != slots or late["blocks_per_segment"][:1] != [first]
+            or late["routes"].get("shed")):
+        raise AssertionError(f"chain catch-up: range sync counted {late['sync_blocks']} blocks "
+                             f"in segments of {late['blocks_per_segment']} (want {slots}, the "
+                             f"first {first}); routes {late['routes']} (a shed flush ran on the "
+                             "host)")
+    missing = [k for k in KERNELS if not late["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"chain catch-up: {missing} never launched by the late joiner")
+    over = sum(w > RANGE_SYNC_WAIT_S for w in late["walls"])
+    log(f"chain catch-up: a late joiner dialed the cpu-native node at its head "
+        f"{late['marks'][0]} and range-synced {len(late['roots'])} blocks from genesis: "
+        f"process_chain_segment calls of {late['blocks_per_segment']} blocks in "
+        f"{[round(w, 2) for w in late['walls']]} s ({over} of them longer than RangeSync's "
+        f"{RANGE_SYNC_WAIT_S:g} s wait for a batch's import), "
+        f"sync_range_batches_total +{late['sync_batches']:.0f}, {late['wire_bytes']} bytes "
+        f"read from the wire, sync wall {late['sync_s']:.1f} s; roots equal to cpu-native's; "
+        f"key table paths {json.dumps(late['key_table'])}; routes {json.dumps(late['routes'])}; "
+        f"K1-K3 launches {json.dumps(late['launches'])}; {waited:.1f} s waited for it here")
+    out = {k: late[k] for k in ("walls", "blocks_per_segment", "launches", "key_table",
+                                "routes", "sync_s", "wire_bytes", "sync_batches",
+                                "sync_blocks", "marks", "network")}
+    out["waited_s"] = waited
+    out["lane_hist"] = late["lane_hist"]
     return out
 
 
@@ -2928,9 +3283,13 @@ def _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm) -> 
     hist = {k: dict(h) for k, h in kernels.lane_hist.items()}
     sched.verify_now = verify_now
     st, slo = sched.status(), sched.slo_summary()
-    oracle = []
+    oracle, oracle_net = [], None
     while (r := from_oracle.get(timeout=CHAIN_TIMEOUT_S)) is not None:
-        oracle.append(r)
+        if isinstance(r, tuple):
+            oracle_net = r[1]
+        else:
+            oracle.append(r)
+    log(f"chain: the oracle's view of its network: {json.dumps(oracle_net, default=str)}")
     seg = from_segment.get(timeout=CHAIN_TIMEOUT_S)
     if mine != oracle:
         diff = [(a["slot"], k) for a, b in zip(mine, oracle) for k in a if a[k] != b[k]]
@@ -2944,9 +3303,15 @@ def _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm) -> 
             raise AssertionError(f"chain: slot {r['slot']}: wrong verdicts or head")
     if len(mine) != slots:
         raise AssertionError(f"chain: {len(mine)} of {slots} slots ran")
-    if (seg["roots"] != [r["root"] for r in oracle] or seg["head"] != oracle[-1]["head"]
-            or seg["state_root"] != oracle[-1]["state_root"]):
+    oracle_chain = {"roots": [r["root"] for r in oracle], "head": oracle[-1]["head"],
+                    "state_root": oracle[-1]["state_root"]}
+    if (seg["roots"] != oracle_chain["roots"] or seg["head"] != oracle_chain["head"]
+            or seg["state_root"] != oracle_chain["state_root"]):
         raise AssertionError("chain: the segment chain's roots differ from cpu-native's")
+    if seg["sync_blocks"] != slots or not seg["sync_batches"] or seg["routes"].get("shed"):
+        raise AssertionError(f"chain segment: range sync counted {seg['sync_blocks']} blocks in "
+                             f"{seg['sync_batches']} batches (want {slots}); routes "
+                             f"{seg['routes']} (a shed flush ran on the host)")
     for label, got in (("block chain", launches), ("segment chain", seg["launches"])):
         missing = [k for k in KERNELS if not got.get(k)]
         if missing:
@@ -2992,6 +3357,7 @@ def _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm) -> 
     log(f"  producer s a slot: median {statistics.median(produce):.2f}; signer "
         f"{statistics.median(sign):.2f}")
     out = {"slots": len(mine), "validators": n, "loop_s": loop_s, "launches": launches,
+           "oracle_chain": oracle_chain,
            "lane_hist": hist, "key_table": {k: tst[k] for k in ("sets", "hit_ratio",
                                                                 "aggregate_inserts",
                                                                 "aggregate_precomputed",
@@ -3024,12 +3390,22 @@ def _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm) -> 
     log(f"  {n_sets} gossip sets (and {len(mine)} blocks through verify_now) in "
         f"{flushes} flushes, {out['sets_per_flush']:.1f} gossip sets a flush; "
         f"{st['bisections_total']} bisections")
-    out["segment"] = {k: seg[k] for k in ("walls", "launches", "key_table", "routes")}
+    out["segment"] = {k: seg[k] for k in ("walls", "blocks_per_segment", "launches",
+                                          "key_table", "routes", "sync_s", "waited_s",
+                                          "wire_bytes", "sync_batches", "sync_blocks",
+                                          "marks", "range_batch", "network")}
+    out["segment"]["oracle_network"] = oracle_net
     out["segment"]["wall_s"] = sum(seg["walls"])
     out["segment_lane_hist"] = seg["lane_hist"]
-    log(f"chain segment: {len(seg['roots'])} blocks in {len(seg['walls'])} "
-        f"process_chain_segment calls of {CHAIN_SEGMENT_BLOCKS} in the segment process, "
-        f"{sum(seg['walls']):.1f} s ({[round(s, 2) for s in seg['walls']]}); roots equal "
+    log(f"chain segment: {len(seg['roots'])} blocks range-synced from the cpu-native node over "
+        f"the port's Noise + snappy transport: re-status at the oracle's heads {seg['marks']}, "
+        f"sync_range_batches_total +{seg['sync_batches']:.0f}, sync_range_blocks_total "
+        f"+{seg['sync_blocks']:.0f} (RangeSync.BATCH {seg['range_batch']}), "
+        f"{seg['wire_bytes']} bytes read from the wire; sync wall {seg['sync_s']:.1f} s from "
+        f"the first mark ({seg['waited_s']:.1f} s of it waiting for the oracle's next mark)")
+    log(f"chain segment: its view of the network {json.dumps(seg['network'], default=str)}")
+    log(f"chain segment: process_chain_segment calls of {seg['blocks_per_segment']} blocks in "
+        f"{[round(w, 2) for w in seg['walls']]} s ({sum(seg['walls']):.1f} s); roots equal "
         f"to cpu-native's; key table paths {json.dumps(seg['key_table'])}; routes "
         f"{json.dumps(seg['routes'])}; K1-K3 launches {json.dumps(seg['launches'])}")
     # a deposit: the harness makes none (its blocks carry no deposits, and
@@ -3065,108 +3441,284 @@ def _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm) -> 
     return out
 
 
-def bn_phase() -> dict:
-    """Phase 12e: the port's entry point. ``python -m lighthouse_tpu_torch
-    bn --bls-backend cuda`` at the minimal preset with 64 interop
-    validators, HTTP on a free port and a data directory, in a
-    subprocess, its compile service given one rung (``BN_RUNG``, through
-    its env knob) and its genesis an hour ahead. Waits for its "beacon node up" line, reads
-    ``/eth/v1/node/health``, ``/lighthouse/health`` and ``/metrics`` (which
-    must parse as Prometheus text), waits until the compile service
-    reports the rung warm (the process built and launched the kernels),
-    then sends SIGTERM: the process must exit with 0 within
-    ``BN_EXIT_S`` and leave no lock file. The whole phase has
-    ``BN_BUDGET_S``."""
-    import os
+class _Proc:
+    """A subprocess of the devnet: its output lines collected by a reader
+    thread."""
+
+    def __init__(self, name: str, argv: list, env: dict, cwd: Path):
+        import threading
+
+        self.name, self.lines = name, []
+        self.proc = subprocess.Popen(argv, cwd=str(cwd), env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+
+    def wait_line(self, prefix: str, deadline: float) -> str:
+        while True:
+            got = [ln for ln in self.lines if ln.startswith(prefix)]
+            if got:
+                return got[0]
+            if self.proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"devnet: no '{prefix}' line from the {self.name} "
+                                     f"(exit {self.proc.poll()}): {self.lines[-20:]}")
+            time.sleep(0.1)
+
+    def stop(self) -> tuple:
+        """SIGTERM; (exit code, seconds to exit)."""
+        return _stop_all([self])[0]
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._reader.join(timeout=5)
+
+
+def _stop_all(procs) -> list:
+    """SIGTERM to every one of ``procs`` at once; per process (exit code or
+    None, seconds from the signal to its exit)."""
     import signal
-    import tempfile
-    import threading
-    import urllib.request
 
     t0 = time.perf_counter()
-    deadline = t0 + BN_BUDGET_S
-    root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=str(root),
-               LIGHTHOUSE_TPU_COMPILE_RUNGS=":".join(map(str, BN_RUNG)))
-    lines, up, up_line = [], threading.Event(), []
-    with tempfile.TemporaryDirectory(prefix="bn-") as datadir:
-        # genesis an hour ahead: the node's duty lookahead idles before
-        # genesis, so no warm of its own races the SIGTERM (phase 12d drives
-        # the lookahead on the card)
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "lighthouse_tpu_torch", "bn", "--bls-backend", "cuda",
-             "--preset", "minimal", "--interop-validators", "64", "--http-port", "0",
-             "--genesis-time", str(int(time.time()) + 3600), "--datadir", datadir],
-            cwd=str(root), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-
-        def read():
-            for line in proc.stdout:
-                lines.append(line.rstrip())
-                if line.startswith("beacon node up"):
-                    up_line.append(line.strip())
-                    up.set()
-
-        reader = threading.Thread(target=read, daemon=True)
-        reader.start()
+    for p in procs:
+        p.proc.send_signal(signal.SIGTERM)
+    out = []
+    for p in procs:
         try:
-            if not up.wait(max(0.0, deadline - time.perf_counter())):
-                raise AssertionError(f"bn: no 'beacon node up' line in {BN_BUDGET_S} s: "
-                                     f"{lines[-20:]}")
-            up_s = time.perf_counter() - t0
-            port = int(re.search(r":(\d+) ", up_line[0]).group(1))
+            p.proc.wait(timeout=max(0.0, t0 + BN_EXIT_S - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            out.append((None, time.perf_counter() - t0))
+            continue
+        out.append((p.proc.returncode, time.perf_counter() - t0))
+    return out
 
-            def get(path):
-                with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
-                    return r.status, r.read()
 
-            status, _ = get("/eth/v1/node/health")
-            health = json.loads(get("/lighthouse/health")[1])["data"]
-            text = get("/metrics")[1].decode()
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _http(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.status, r.read()
+
+
+def _prom(text: str, name: str) -> dict:
+    """The samples of family ``name`` in Prometheus text: {label text: value}."""
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith(name + "{") or ln.startswith(name + " "):
+            key, _, value = ln.rpartition(" ")
+            out[key[len(name):]] = float(value)
+    return out
+
+
+def devnet_phase(backend: str = "cuda") -> dict:
+    """Phase 12e: the README's devnet through the port's entry points, in
+    three subprocesses (``DEVNET_VALIDATORS`` interop validators at the
+    minimal preset, a shared genesis ``DEVNET_GENESIS_S`` after the
+    launch):
+
+    * ``python -m lighthouse_tpu_torch bn --bls-backend cuda
+      --listen-port P`` (the card bn; its compile service holds
+      ``DEVNET_RUNGS``, through its env knob, ``DEVNET_RUNG`` first);
+    * a second ``bn --bls-backend cpu-native --boot-nodes 127.0.0.1:P``,
+      which follows over gossip;
+    * ``vc --interop-keys 0:64 --beacon-node <the card bn>`` with a data
+      directory (its slashing-protection database).
+
+    The card bn must be up, answer ``/eth/v1/node/health``,
+    ``/lighthouse/health`` and ``/metrics`` (Prometheus text) and hold the
+    rung warm before genesis. The devnet then runs ``DEVNET_SLOTS`` slots
+    of the system clock: the vc proposes and attests through the card bn's
+    HTTP API, the card bn verifies them on the card and gossips them. Then
+    the vc stops, both heads must be equal and at least 3 slots past
+    genesis, the card bn's ``/metrics`` must show its verifies on the
+    device backend with K1-K3 launched (``bls_device_kernel_launches_total``)
+    and no flush shed to the host, the vc's database must hold a signed
+    block at every slot of the canonical chain, and each process must exit
+    0 within ``BN_EXIT_S`` of SIGTERM, leaving no lock file; all within
+    ``DEVNET_BUDGET_S``. ``backend`` other than ``cuda`` is a CPU
+    rehearsal (the card checks are skipped)."""
+    import os
+    import sqlite3
+    import tempfile
+
+    t0 = time.perf_counter()
+    deadline = t0 + DEVNET_BUDGET_S
+    root = Path(__file__).resolve().parent
+    genesis = int(time.time() + DEVNET_GENESIS_S)
+    p2p = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(root),
+               LIGHTHOUSE_TPU_COMPILE_RUNGS=",".join(":".join(map(str, r))
+                                                     for r in DEVNET_RUNGS))
+    bn = [sys.executable, "-m", "lighthouse_tpu_torch", "bn", "--preset", "minimal",
+          "--interop-validators", str(DEVNET_VALIDATORS), "--http-port", "0",
+          "--genesis-time", str(genesis)]
+    procs, out = [], {}
+    on_card = backend == "cuda"
+    with tempfile.TemporaryDirectory(prefix="devnet-") as tmp:
+        dirs = {k: Path(tmp, k) for k in ("card", "peer", "vc")}
+        for d in dirs.values():
+            d.mkdir()
+        try:
+            card = _Proc("card bn", [*bn, "--bls-backend", backend, "--listen-port", str(p2p),
+                                     "--datadir", str(dirs["card"])], env, root)
+            procs.append(card)
+            ports = {}
+            line = card.wait_line("beacon node up", deadline)  # listening: dial it
+            ports["card"] = int(re.search(r":(\d+) ", line).group(1))
+            peer = _Proc("cpu-native bn", [*bn, "--bls-backend", "cpu-native", "--listen-port",
+                                           "0", "--boot-nodes", f"127.0.0.1:{p2p}",
+                                           "--datadir", str(dirs["peer"])], env, root)
+            procs.append(peer)
+            line = peer.wait_line("beacon node up", deadline)
+            ports["peer"] = int(re.search(r":(\d+) ", line).group(1))
+            out["up_s"] = time.perf_counter() - t0
+            status, _ = _http(ports["card"], "/eth/v1/node/health")
+            health = json.loads(_http(ports["card"], "/lighthouse/health")[1])["data"]
+            text = _http(ports["card"], "/metrics")[1].decode()
             bad = [ln for ln in text.splitlines() if ln and not _PROM_LINE.match(ln)]
-            samples = [ln for ln in text.splitlines() if ln and not ln.startswith("#")]
-            if status != 200 or bad or not samples:
-                raise AssertionError(f"bn: health {status}; /metrics lines that are not "
-                                     f"Prometheus text: {bad[:3]}")
-            while True:
-                csvc = json.loads(get("/lighthouse/health")[1])["data"]["compile_service"]
-                if _bn_warm(csvc):
+            if status != 200 or bad:
+                raise AssertionError(f"devnet: card bn health {status}; /metrics lines that "
+                                     f"are not Prometheus text: {bad[:3]}")
+            # the rung warm before the vc starts: its first duties (slot 0's,
+            # before genesis) are verified on the card too
+            while on_card and not _bn_warm(health["compile_service"]):
+                if time.time() > genesis - DEVNET_VC_LEAD_S:
+                    raise AssertionError(f"devnet: the card bn's rung {DEVNET_RUNG} is not "
+                                         f"warm {DEVNET_VC_LEAD_S} s before genesis: "
+                                         f"{health['compile_service']}")
+                time.sleep(0.25)
+                health = json.loads(_http(ports["card"], "/lighthouse/health")[1])["data"]
+            out["warm_s"] = time.perf_counter() - t0
+            kernels0 = health["kernels"]  # the card bn's K1-K3 counts before the vc
+            vc = _Proc("vc", [sys.executable, "-m", "lighthouse_tpu_torch", "vc", "--preset",
+                              "minimal", "--interop-keys", f"0:{DEVNET_VALIDATORS}",
+                              "--beacon-node", f"http://127.0.0.1:{ports['card']}",
+                              "--datadir", str(dirs["vc"])], env, root)
+            procs.append(vc)
+            vc.wait_line("validator client up", deadline)
+            out["vc_up_s"] = time.perf_counter() - t0
+            log(f"devnet: bns up at {out['up_s']:.1f} s, the card's rung warm at "
+                f"{out['warm_s']:.1f} s, the vc up at {out['vc_up_s']:.1f} s; genesis at "
+                f"{DEVNET_GENESIS_S:.0f} s")
+            peers = json.loads(_http(ports["card"], "/eth/v1/node/peers")[1])["data"]
+            if not peers:
+                raise AssertionError("devnet: the cpu-native bn is not the card bn's peer")
+            # the last slot's block proposed and imported
+            time.sleep(max(0.0, genesis + DEVNET_SLOTS * 6 + 1 - time.time()))
+            out["vc_exit"] = vc.stop()
+            heads = {}
+            for _ in range(50):  # the last block's gossip reaches the peer
+                heads = {k: json.loads(_http(p, "/eth/v1/beacon/headers/head")[1])["data"]
+                         for k, p in ports.items()}
+                if heads["card"]["root"] == heads["peer"]["root"]:
                     break
-                if time.perf_counter() > deadline:
-                    raise AssertionError(f"bn: no warm rung in {BN_BUDGET_S} s: {csvc}")
-                time.sleep(0.5)
-            warm_s = time.perf_counter() - t0
-            s0 = time.perf_counter()
-            proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=BN_EXIT_S)
-            exit_s = time.perf_counter() - s0
+                time.sleep(0.2)
+            head_slot = int(heads["card"]["header"]["message"]["slot"])
+            if heads["card"]["root"] != heads["peer"]["root"] or head_slot < 3:
+                raise AssertionError(f"devnet: heads {heads}: want equal, 3 or more slots past "
+                                     "genesis")
+            slots, root_hex = [], heads["card"]["root"]
+            while True:  # the canonical chain's block slots, from the head down
+                hdr = json.loads(_http(ports["card"], f"/eth/v1/beacon/headers/{root_hex}")[1])
+                msg = hdr["data"]["header"]["message"]
+                if int(msg["slot"]) == 0:
+                    break
+                slots.append(int(msg["slot"]))
+                root_hex = msg["parent_root"]
+            text = _http(ports["card"], "/metrics")[1].decode()
+            launches = {k.split('"')[1]: v for k, v in
+                        _prom(text, "bls_device_kernel_launches_total").items()}
+            verifies = sum(_prom(text, "bls_device_verify_outcomes_total").values())
+            routes = {k.split('"')[1]: v for k, v in
+                      _prom(text, "compile_service_cold_routes_total").items()}
+            health = json.loads(_http(ports["card"], "/lighthouse/health")[1])["data"]
+            if on_card and (not verifies or routes.get("shed") or
+                            any(not launches.get(k) for k in KERNELS)):
+                raise AssertionError(f"devnet: the card bn's verifies {verifies}, routes "
+                                     f"{routes}, K1-K3 launches {launches}: want every "
+                                     "verify on the card, none shed; its compile service "
+                                     f"{json.dumps(health['compile_service'], default=str)}")
+            csvc = health["compile_service"]
+            w0 = time.perf_counter()
+            # no capture in flight when the node stops: the warm-ups the
+            # devnet's cold geometries asked for finish first
+            while csvc and (csvc["queue"] or csvc["in_flight"]):
+                if time.perf_counter() > deadline - DEVNET_EXIT_ROOM_S:
+                    raise AssertionError(f"devnet: the card bn's compile service still busy: "
+                                         f"{json.dumps(csvc, default=str)[:600]}")
+                time.sleep(0.25)
+                csvc = json.loads(_http(ports["card"], "/lighthouse/health")[1])["data"][
+                    "compile_service"]
+            out["idle_wait_s"] = time.perf_counter() - w0
+            kernels1 = json.loads(_http(ports["card"], "/lighthouse/health")[1])["data"][
+                "kernels"]
+            out["card_exit"], out["peer_exit"] = _stop_all([card, peer])
         finally:
-            if proc.poll() is None:
+            for proc in procs:
                 proc.kill()
-                proc.wait()
-            reader.join(timeout=5)
-        lock = Path(datadir, "beacon.lock")
-        if rc != 0 or lock.exists():
-            raise AssertionError(f"bn: exit code {rc} after SIGTERM, lock file left: "
-                                 f"{lock.exists()}; {lines[-20:]}")
+        for label, (rc, secs) in (("vc", out["vc_exit"]), ("card bn", out["card_exit"]),
+                                  ("cpu-native bn", out["peer_exit"])):
+            if rc != 0 or secs > BN_EXIT_S:
+                raise AssertionError(f"devnet: the {label} exited {rc} in {secs:.2f} s after "
+                                     f"SIGTERM: {[p.lines[-20:] for p in procs]}")
+        locks = [d for d in (dirs["card"], dirs["peer"]) if Path(d, "beacon.lock").exists()]
+        db = sqlite3.connect(str(dirs["vc"] / "slashing_protection.sqlite"))
+        signed = {r[0] for r in db.execute("SELECT slot FROM signed_blocks")}
+        db.close()
+    if locks or not set(slots) <= signed:
+        raise AssertionError(f"devnet: lock files left {locks}; blocks {sorted(slots)}, signed "
+                             f"in the vc's database {sorted(signed)}")
     wall = time.perf_counter() - t0
-    if wall > BN_BUDGET_S:
-        raise AssertionError(f"bn: the phase took {wall:.1f} s of its {BN_BUDGET_S} s")
-    out = {"up_s": up_s, "warm_s": warm_s, "exit_s": exit_s, "wall_s": wall,
-           "warm_rungs": (csvc or {}).get("warm_rungs"), "metric_samples": len(samples),
-           "health_blocks": sorted(health)}
-    log(f"bn: {up_line[0]}")
-    log(f"bn: up in {up_s:.1f} s; health 200, /lighthouse/health and /metrics "
-        f"({len(samples)} samples, all Prometheus text) answered; rung {out['warm_rungs']} "
-        f"warm at {warm_s:.1f} s; SIGTERM: exit 0 in {exit_s:.2f} s, no lock file; phase "
-        f"{wall:.1f} s")
+    if wall > DEVNET_BUDGET_S:
+        raise AssertionError(f"devnet: the phase took {wall:.1f} s of its {DEVNET_BUDGET_S} s")
+    out.update(wall_s=wall, head_slot=head_slot, head=heads["card"]["root"],
+               blocks=sorted(slots), signed_blocks=sorted(signed), verifies=verifies,
+               launches=launches, routes=routes, peers=len(peers),
+               warm_rungs=(csvc or {}).get("warm_rungs"))
+    out["lane_hist"] = hist = {}
+    if kernels0 is not None and kernels1 is not None:
+        for k in KERNELS:
+            h0, h1 = kernels0["lane_hist"][k], kernels1["lane_hist"][k]
+            hist[k] = {int(n): c - h0.get(n, 0) for n, c in h1.items() if c > h0.get(n, 0)}
+        out["launches_counted"] = {k: kernels1["launches"][k] - kernels0["launches"][k]
+                                   for k in KERNELS}
+    if on_card and any(not hist.get(k) for k in KERNELS):
+        raise AssertionError(f"devnet: the card bn's /lighthouse/health counted no launch "
+                             f"by lane count from the vc's start on: {hist}")
+    log(f"devnet: {DEVNET_SLOTS} slots of the system clock; the card bn's compile service "
+        f"warmed {out['warm_rungs']} (of {list(DEVNET_RUNGS)}, and any cold geometry the "
+        f"devnet met), "
+        f"idle {out['idle_wait_s']:.1f} s after the vc stopped")
+    log(f"devnet: both heads {out['head'][:14]} at slot {head_slot}; canonical blocks at "
+        f"{out['blocks']}, every one signed in the vc's slashing-protection database "
+        f"({len(signed)} signed); the card bn: {verifies:.0f} device verifies, routes "
+        f"{json.dumps(routes)}, K1-K3 launches {json.dumps(launches)} (its /metrics)")
+    log(f"devnet: the card bn's own K1-K3 launches from the vc's start to its stop "
+        f"(its /lighthouse/health; the warm-ups of the rungs after the first included): "
+        f"{json.dumps(out.get('launches_counted'))} at "
+        f"{ {k: len(h) for k, h in hist.items()} } lane counts")
+    log(f"devnet: SIGTERM exits (code, s): vc {out['vc_exit']}, card bn {out['card_exit']}, "
+        f"cpu-native bn {out['peer_exit']}; no lock file; phase {wall:.1f} s")
     return out
 
 
 def _bn_warm(csvc) -> bool:
     """The bn process's compile service (its ``/lighthouse/health`` block)
-    reports a warm rung."""
-    return bool(csvc and csvc["warm_rungs"])
+    reports ``DEVNET_RUNG`` warm."""
+    return bool(csvc) and any(tuple(r[:3]) == DEVNET_RUNG for r in csvc["warm_rungs"])
 
 
 _PROM_LINE = re.compile(
@@ -3249,8 +3801,13 @@ _PHASE_T: list = []
 
 
 def _phase_mark(name: str) -> None:
-    """The start of phase ``name`` (and the end of the one before)."""
-    _PHASE_T.append((name, time.perf_counter()))
+    """The start of phase ``name`` (and the end of the one before, whose
+    wall is logged, so a run cut short still shows where its time went)."""
+    now = time.perf_counter()
+    if _PHASE_T:
+        prev, t0 = _PHASE_T[-1]
+        log(f"phase {prev} took {now - t0:.1f} s (script at {now - _PHASE_T[0][1]:.1f} s)")
+    _PHASE_T.append((name, now))
 
 
 def _phase_walls() -> dict:
@@ -3286,6 +3843,10 @@ def main() -> int:
     card = card_line()
     _phase_mark("1")
     log(f"phase 1 device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
+    import importlib.util
+
+    log(f"cryptography importable here: {importlib.util.find_spec('cryptography') is not None}"
+        " (for information: the port carries its own X25519, ChaCha20-Poly1305 and AES-CTR)")
     kernels.build()
     info = kernels.build_info
     log(f"kernel build: {info['seconds']:.2f} s ({info['library']})")
@@ -3498,6 +4059,7 @@ def main() -> int:
     prev_table = key_table.get_table()
     csvc.clear_service(warm["service"])  # the node attaches its own
     chain = chain_phase(dev, prewarm=warm["service"])
+    catch_up = chain.pop("catch_up")  # the late joiner runs on through phase 12e
     csvc.set_service(warm["service"])
     key_table.set_table(prev_table)
     hists["chain"] = chain.pop("lane_hist")
@@ -3508,9 +4070,24 @@ def main() -> int:
     log(card)
 
     _phase_mark("12e")
-    log("phase 12e bn: the port's entry point, python -m lighthouse_tpu_torch bn "
-        "--bls-backend cuda, in a subprocess: up, health, metrics, one warm rung, SIGTERM")
-    print(json.dumps({"bn": bn_phase()}), flush=True)
+    log("phase 12e devnet: python -m lighthouse_tpu_torch bn --bls-backend cuda --listen-port, "
+        "a cpu-native bn dialing it, and a vc of 64 interop keys on the card bn, for "
+        f"{DEVNET_SLOTS} slots of the system clock")
+    try:
+        devnet = devnet_phase()
+    except BaseException:
+        stop_catch_up(catch_up)
+        raise
+    hists["devnet"] = devnet.pop("lane_hist")
+    print(json.dumps({"devnet": devnet}), flush=True)
+    log(card)
+
+    _phase_mark("12d catch-up")
+    log("phase 12d catch-up: the late joiner's range sync from genesis, which ran beside "
+        "phase 12e")
+    late = catch_up_result(catch_up)
+    hists["chain catch-up"] = late.pop("lane_hist")
+    print(json.dumps({"chain_catch_up": late}, default=str), flush=True)
     log(card)
 
     _phase_mark("13")

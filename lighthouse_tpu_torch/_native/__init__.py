@@ -1,7 +1,9 @@
-"""The port's C sources, byte-for-byte copies of the JAX package's
-``_native`` sources but for comments: the BLS12-381 verifier
-(``bls12381.c``, backend ``cpu-native``) and the batched SHA-256 of the
-merkleization (``sha256.c``). Each is built with the system C compiler
+"""The port's C sources: copies of the JAX package's ``_native`` sources
+but for comments, the BLS12-381 verifier (``bls12381.c``, backend
+``cpu-native``), the batched SHA-256 of the merkleization (``sha256.c``)
+and the snappy codec of the wire (``snappy.c``), and the port's own
+ChaCha20-Poly1305 of the transport (``chacha20poly1305.c``, where the JAX
+package calls ``cryptography``). Each is built with the system C compiler
 at first use and loaded through ``ctypes``.
 
 Nothing is built at import. :func:`build_and_load` compiles
@@ -11,8 +13,9 @@ writing to a per-process temporary file that ``os.replace`` moves into
 place: several processes building at once never load a half-written
 library. A missing compiler or a failed build raises
 :class:`NativeBuildError`; the callers decide what runs instead (the
-hashing falls back to ``hashlib``, the compile service's shed fallback to
-the pure-Python oracle).
+hashing falls back to ``hashlib``, the snappy codec and the AEAD to their
+pure-Python twins, the compile service's shed fallback to the pure-Python
+oracle).
 """
 
 from __future__ import annotations

@@ -6,13 +6,14 @@ package's ``cli.py``.
 
     python -m lighthouse_tpu_torch bn --preset minimal --interop-validators 64
     python -m lighthouse_tpu_torch bn --bls-backend fake --http-port 0
+    python -m lighthouse_tpu_torch vc --beacon-node http://127.0.0.1:5052 ...
+    python -m lighthouse_tpu_torch am wallet-create|validator-create ...
     python -m lighthouse_tpu_torch lcli interop-genesis --out genesis.ssz
     python -m lighthouse_tpu_torch db inspect --datadir ...
 
-``vc``, ``am``, ``boot-node`` and ``lcli generate-bootnode-record`` need
-host modules the port does not carry yet (the validator client, keys,
-the network); they exit with status 2 and a message that names
-ROADMAP item 15c.
+A command that reaches a module the port does not carry yet (of a node's,
+only the slasher) exits with status 2 and a message that names ROADMAP
+item 15c.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import sys
 import threading
 
 from .crypto.backend import DEFAULT as _DEFAULT_BACKEND
-from .utils.pending import NotPortedError, pending
+from .utils.pending import NotPortedError
 
 
 def _add_global_flags(p: argparse.ArgumentParser) -> None:
@@ -223,15 +224,16 @@ def run_bn(args) -> int:
     return 0
 
 
+SLASHING_DB = "slashing_protection.sqlite"
+
+
 def run_vc(args) -> int:
-    with pending("eth2_client"):
-        from .eth2_client import BeaconNodeClient
+    from .eth2_client import BeaconNodeClient
     from .types.chain_spec import minimal_spec, mainnet_spec
     from .types.containers import types_for
     from .types.preset import PRESETS
     from .utils.slot_clock import SystemTimeSlotClock
-    with pending("validator_client"):
-        from .validator_client import BeaconNodeFallback, ValidatorClient, ValidatorStore
+    from .validator_client import BeaconNodeFallback, ValidatorClient, ValidatorStore
 
     preset = PRESETS[args.preset]
     spec = minimal_spec() if args.preset == "minimal" else mainnet_spec()
@@ -240,7 +242,18 @@ def run_vc(args) -> int:
     nodes = BeaconNodeFallback(clients)
     genesis = nodes.call("genesis")
     gvr = bytes.fromhex(genesis["genesis_validators_root"][2:])
-    store = ValidatorStore(spec, preset, t, genesis_validators_root=gvr)
+    slashing_db = None
+    if args.datadir:
+        # the signing history outlives the process (the JAX vc keeps it in
+        # memory whatever --datadir says, so a restart forgets it)
+        import os
+
+        from .keys import SlashingDatabase
+
+        slashing_db = SlashingDatabase(os.path.join(args.datadir, SLASHING_DB),
+                                       genesis_validators_root=gvr)
+    store = ValidatorStore(spec, preset, t, genesis_validators_root=gvr,
+                           slashing_db=slashing_db)
     if args.interop_keys:
         from .state_transition import interop_secret_key
 
@@ -266,8 +279,7 @@ def run_vc(args) -> int:
 
 
 def run_am(args) -> int:
-    with pending("keys"):
-        from .keys import Wallet, save
+    from .keys import Wallet, save
 
     if args.am_command == "wallet-create":
         password = getpass.getpass("wallet password: ")
@@ -422,9 +434,8 @@ def run_boot_node(args) -> int:
     import json as _json
     import threading as _threading
 
-    with pending("network"):
-        from .network.service import PROTO_PEER_EXCHANGE, PROTO_PING, PROTO_STATUS
-        from .network.transport import Transport
+    from .network.service import PROTO_PEER_EXCHANGE, PROTO_PING, PROTO_STATUS
+    from .network.transport import Transport
 
     t = Transport(port=args.port)
 
@@ -461,8 +472,7 @@ def run_lcli(args) -> int:
     if args.lcli_command == "generate-bootnode-record":
         import json as _json
 
-        with pending("network"):
-            from .network import noise as _noise
+        from .network import noise as _noise
 
         ident = (
             _noise.Identity.from_seed(args.seed.encode())

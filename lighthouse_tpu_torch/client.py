@@ -8,9 +8,8 @@ backend: the operation pool's ``DeviceAggregator``, the mesh, the key
 table with its delta listener, the duty lookahead, the compile service,
 then the scheduler. ``ClientConfig.device`` says where they run
 (``cuda`` unless the caller asks for the CPU, as the tests do). The
-options that need host modules the port does not carry yet (checkpoint
-sync, the slasher, the p2p network) raise
-:class:`~.utils.pending.NotPortedError`.
+slasher, the one option that needs a module the port does not carry yet,
+raises :class:`~.utils.pending.NotPortedError`.
 """
 
 from __future__ import annotations
@@ -321,8 +320,7 @@ class ClientBuilder:
         """Bootstrap from a remote BN's finalized state instead of genesis
         (reference checkpoint sync, ``client/src/builder.rs:128-350``);
         history below the anchor is backfilled by the network layer."""
-        with pending("eth2_client"):
-            from .eth2_client import BeaconNodeClient
+        from .eth2_client import BeaconNodeClient
 
         from .state_transition.helpers import latest_block_header_root
 
@@ -625,8 +623,7 @@ class ClientBuilder:
 
         network = None
         if cfg.listen_port is not None:
-            with pending("network"):
-                from .network.service import NetworkService
+            from .network.service import NetworkService
 
             network = NetworkService(
                 chain, processor, host=cfg.listen_host, port=int(cfg.listen_port)

@@ -59,7 +59,12 @@ batch:
   another;
 * the graph lock, one per captured key, held over the copy-in, replay
   and clone-out of that graph, so two threads replaying one key never
-  interleave on its static buffers.
+  interleave on its static buffers. A failover dispatch
+  (:func:`no_graph_wait`) never waits for it: when another thread holds
+  it, the failover runs ``fn`` eagerly on the card. The holder may be a
+  dispatch the scheduler's watchdog reaped, which no one can stop, and on
+  a mesh with two shards on one card the failover's shard replays the
+  same graph.
 
 The order is capture lock, then graph lock (only :func:`reset` takes
 both); ``fp``'s fill lock is a leaf taken under neither by traffic. One
@@ -108,6 +113,8 @@ _lock_wait_s: dict = {}      # ("capture" | "graph", device index) -> seconds wa
 _GUARD = threading.Lock()
 _PROGRAMS: "weakref.WeakSet[CapturedProgram]" = weakref.WeakSet()
 _side_streams: dict = {}     # device index -> the capture stream
+_busy_eager: dict = {}       # device index -> failover calls run eagerly beside a busy graph
+_tls = threading.local()     # .no_wait: this thread is a failover dispatch
 
 # Kernel launches per captured segment: about 1,000 graph nodes in stage 1
 # and 5,500 in stage 3 (the torch ops between launches included).
@@ -364,25 +371,39 @@ class CapturedProgram:
         return g
 
     def _replay(self, g: _Graph, args, dev, idx: int):
-        stream = torch.cuda.current_stream(dev)
+        if getattr(_tls, "no_wait", False):
+            # a failover: the holder may be a reaped dispatch that never
+            # lets go, so a busy graph runs eagerly on the card instead
+            if not g.lock.acquire(blocking=False):
+                with _GUARD:
+                    _busy_eager[idx] = _busy_eager.get(idx, 0) + 1
+                return self.fn(*args)
+            try:
+                return self._replay_locked(g, args, dev)
+            finally:
+                g.lock.release()
         with _waited(g.lock, "graph", idx, g):
-            stream.wait_event(g.done)  # the previous call's reads and clones
-            for s, a in zip(g.inputs, args):
-                s.copy_(a)
-            if _event_timing:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record(stream)
-                for graph in g.segments:
-                    graph.replay()
-                end.record(stream)
-                _events.append((start, end))
-            else:
-                for graph in g.segments:
-                    graph.replay()
-            kernels.credit(g.credit)
-            g.replays += 1
-            return self._outputs(g, dev)
+            return self._replay_locked(g, args, dev)
+
+    def _replay_locked(self, g: _Graph, args, dev):
+        stream = torch.cuda.current_stream(dev)
+        stream.wait_event(g.done)  # the previous call's reads and clones
+        for s, a in zip(g.inputs, args):
+            s.copy_(a)
+        if _event_timing:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for graph in g.segments:
+                graph.replay()
+            end.record(stream)
+            _events.append((start, end))
+        else:
+            for graph in g.segments:
+                graph.replay()
+        kernels.credit(g.credit)
+        g.replays += 1
+        return self._outputs(g, dev)
 
     @staticmethod
     def _outputs(g: _Graph, dev):
@@ -414,8 +435,9 @@ def _all_capture_locks():
 
 def status() -> dict:
     """Captured graphs by program and key, the totals of nodes and pool
-    bytes, and the seconds callers waited on each device's capture lock
-    and on its graphs' locks."""
+    bytes, the seconds callers waited on each device's capture lock and on
+    its graphs' locks, and the failover calls run eagerly beside a busy
+    graph."""
     progs = {}
     nodes = pool = 0
     for p in sorted(_PROGRAMS, key=lambda p: p.name):
@@ -431,8 +453,24 @@ def status() -> dict:
         waits = {kind: {f"cuda:{i}": s for (k, i), s in sorted(_lock_wait_s.items())
                         if k == kind}
                  for kind in ("capture", "graph")}
+        busy = {f"cuda:{i}": n for i, n in sorted(_busy_eager.items())}
     return {"programs": progs, "graphs": sum(len(r) for r in progs.values()),
-            "nodes": nodes, "pool_bytes": pool, "lock_wait_s": waits}
+            "nodes": nodes, "pool_bytes": pool, "lock_wait_s": waits,
+            "failover_eager": busy}
+
+
+@contextlib.contextmanager
+def no_graph_wait():
+    """This thread's calls are a failover dispatch while the block runs: a
+    captured key whose graph lock another thread holds runs ``fn``
+    eagerly (its launches counted as any eager call's) instead of waiting
+    for the lock; :func:`status` counts them under ``failover_eager``."""
+    prev = getattr(_tls, "no_wait", False)
+    _tls.no_wait = True
+    try:
+        yield
+    finally:
+        _tls.no_wait = prev
 
 
 def reset() -> None:

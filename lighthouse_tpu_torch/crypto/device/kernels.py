@@ -27,7 +27,9 @@ warm-up's counts are then added once (its launches ran), and the
 capture's are added again by :func:`credit` on every replay, which
 launches the captured kernels. Counts from other threads (their own
 launches, their replays' credits) go on landing in the dicts exactly,
-under one lock, while a capture runs.
+under one lock, while a capture runs. The metric family
+``bls_device_kernel_launches_total{kernel}`` counts the same launches as
+``launches`` (a node's ``/metrics``), and no reset clears it.
 K1 reduces inside the kernel (the ``reduce`` flag), so ``fp.mul`` on the
 card is one launch; the raw-column mode exists to hold the kernel against
 ``mul_cols_int8`` column for column.
@@ -53,6 +55,7 @@ from pathlib import Path
 
 import torch
 
+from ...utils import metrics
 from . import fp
 
 PACKAGE_ROOT = Path(__file__).resolve().parents[2]
@@ -74,6 +77,12 @@ _MAX_LIMBS = 96  # a warp holds limbs t, t+32, t+64 of a lane
 launches = {"fp_mul_cols": 0, "fp2_mul": 0, "fp2_sq": 0}
 lanes = dict.fromkeys(launches, 0)
 lane_hist = {k: Counter() for k in launches}
+_LAUNCHES = metrics.counter_vec(
+    "bls_device_kernel_launches_total",
+    "launches of the hand-written CUDA kernels K1-K3, by kernel",
+    labelnames=("kernel",),
+)
+_LAUNCH_METRIC = {k: _LAUNCHES.with_labels(k) for k in launches}  # resolved once
 _COUNT_LOCK = threading.Lock()   # the global counters, from any thread
 _tls = threading.local()         # .sink: this thread's capture sink, or None; .on_launch
 
@@ -102,6 +111,7 @@ def _count(name: str, n: int) -> None:
         launches[name] += 1
         lanes[name] += n
         lane_hist[name][n] += 1
+    _LAUNCH_METRIC[name].inc()
 
 
 @contextlib.contextmanager
@@ -127,6 +137,15 @@ def snapshot() -> dict:
         return {k: (launches[k], lanes[k], Counter(lane_hist[k])) for k in launches}
 
 
+def status() -> dict:
+    """The counters as a JSON document: launches, lanes and launches by
+    lane count (string keys), for a node's ``/lighthouse/health``."""
+    with _COUNT_LOCK:
+        return {"launches": dict(launches), "lanes": dict(lanes),
+                "lane_hist": {k: {str(n): c for n, c in sorted(h.items())}
+                              for k, h in lane_hist.items()}}
+
+
 def credit(delta: dict) -> None:
     """Add ``delta`` (in :func:`snapshot`'s form) to the global counters:
     the launches of one replay of a CUDA graph, counted into the capture's
@@ -137,6 +156,9 @@ def credit(delta: dict) -> None:
             launches[k] += n
             lanes[k] += l
             lane_hist[k].update(h)
+    for k, (n, _l, _h) in delta.items():
+        if n:
+            _LAUNCH_METRIC[k].inc(n)
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -157,6 +158,11 @@ def build_health_doc(chain) -> dict:
     # persistent-cache state (null when the node runs without one)
     csvc = getattr(chain, "compile_service", None)
     doc["compile_service"] = None if csvc is None else csvc.status()
+    # the hand-written kernels K1-K3: launches and launches by lane count
+    # since the process started (null while the kernels' module was never
+    # loaded, so no kernel ran)
+    kmod = sys.modules.get(__package__.rsplit(".", 1)[0] + ".crypto.device.kernels")
+    doc["kernels"] = None if kmod is None else kmod.status()
     # data-movement ledger: per-operand/per-kind H2D bytes,
     # pack-phase seconds + pack share of verify wall, repeat-pubkey
     # re-upload window, device memory — the evidence base for the

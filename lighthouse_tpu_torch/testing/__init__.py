@@ -1,9 +1,11 @@
 """Test rigs (reference: ``beacon_node/beacon_chain/src/test_utils.rs``
 ``BeaconChainHarness``): deterministic interop validators driving real
-state transitions with real BLS signatures. The port's copy of the JAX
-package's ``StateHarness``; its fork-choice runner and simulator are not
-ported."""
+state transitions with real BLS signatures: the port's copies of the JAX
+package's ``StateHarness``, fork-choice runner and network simulator
+(``simulator.LocalNetwork``, imported from its module: it pulls in the
+client and the network)."""
 
+from .fork_choice_runner import ForkChoiceRunner
 from .harness import StateHarness
 
 
@@ -18,4 +20,4 @@ def spec_for_fork(fork: str):
     )
 
 
-__all__ = ["StateHarness", "spec_for_fork"]
+__all__ = ["ForkChoiceRunner", "StateHarness", "spec_for_fork"]

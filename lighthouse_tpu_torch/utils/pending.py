@@ -1,8 +1,7 @@
-"""The JAX package's host modules the port does not carry yet: the
-network, the eth2 HTTP client, keys, the validator client and the
-slasher (ROADMAP item 15c). A node option or a command that needs one
-raises :class:`NotPortedError`, an ``ImportError`` that names the item;
-the defaults never reach them."""
+"""The JAX package's host modules the port does not carry yet: of those a
+node reaches, the slasher (ROADMAP item 15c). The node option that needs
+it (``ClientConfig.slasher``) raises :class:`NotPortedError`, an
+``ImportError`` that names the item; the defaults never reach it."""
 
 from __future__ import annotations
 

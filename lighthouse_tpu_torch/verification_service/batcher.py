@@ -103,6 +103,7 @@ flush scope and ledger context itself: both are thread-local.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -111,7 +112,7 @@ from concurrent.futures import Future
 from typing import Callable, List, Optional
 
 from ..crypto import bls
-from ..crypto.device import mesh as mesh_mod
+from ..crypto.device import graphs, mesh as mesh_mod
 from ..utils import (
     flight_recorder,
     metrics,
@@ -1184,16 +1185,19 @@ class VerificationScheduler:
             )
         return {"ok": ok, "route": route_action, "paid": paid}
 
-    def _dispatch_on(self, verify, sets, shard, deadline_s: float):
+    def _dispatch_on(self, verify, sets, shard, deadline_s: float, failover: bool = False):
         """One dispatch scoped to ``shard``, under the watchdog when
         ``deadline_s`` > 0: the call then runs on a monitored daemon
         thread that enters the shard's dispatch scope itself (CUDA's
         current device is per thread), and a dispatch that outlasts the
         deadline raises :class:`WatchdogTimeout` here; the caller turns it
         into the card-loss failover instead of wedging the flush thread
-        on a hung device."""
+        on a hung device. A ``failover`` dispatch never waits on a captured
+        graph another thread holds (``graphs.no_graph_wait``): the holder
+        may be the reaped dispatch it replaces."""
+        scope = graphs.no_graph_wait if failover else contextlib.nullcontext
         if not deadline_s or deadline_s <= 0:
-            with mesh_mod.dispatch_to(shard):
+            with mesh_mod.dispatch_to(shard), scope():
                 return verify(sets)
         # the watchdog's thread re-enters this thread's ledger context and
         # flush scope (both thread-local) with the shard's dispatch scope
@@ -1206,7 +1210,7 @@ class VerificationScheduler:
             try:
                 with transfer_ledger.context(*ctx), \
                         pipeline_profiler.flush_scope(rec), \
-                        mesh_mod.dispatch_to(shard):
+                        mesh_mod.dispatch_to(shard), scope():
                     box["ok"] = verify(sets)
             except BaseException as e:  # noqa: BLE001 — relayed below
                 box["err"] = e
@@ -1277,9 +1281,10 @@ class VerificationScheduler:
         t0 = time.monotonic()
         try:
             if fb is not None:
-                out = self._dispatch_on(verify, sets, fb, wd)
+                out = self._dispatch_on(verify, sets, fb, wd, failover=True)
             else:
-                out = verify(sets)
+                with graphs.no_graph_wait():
+                    out = verify(sets)
         except BaseException:
             mesh.note_failure(shard, err, lost=False)
             raise

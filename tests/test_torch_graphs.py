@@ -429,3 +429,72 @@ def test_batch_pads_to_the_warm_rung_and_matches_cpu_native(service, poison, mon
     costs = service.measured_rung_costs()["rungs"]["4x2x2@dev0"]
     assert costs["dispatches"] >= 1 and costs["sum_sets"] >= 3
     assert service.status()["warm_rungs"] == [[*RUNG, psvc.CompileService._impl()]]
+
+
+def test_a_failover_runs_eagerly_beside_a_graph_another_thread_holds(monkeypatch):
+    """A reaped dispatch may hold a graph's lock for as long as it hangs;
+    on a mesh with two shards on one card the failover replays the same
+    graph. Inside ``no_graph_wait`` a busy graph runs its function eagerly
+    at once; outside it a call waits for the lock as before."""
+    import threading
+    import time
+
+    prog = graphs.CapturedProgram(lambda x: x + 1, name="failover_probe")
+    g = graphs._Graph()
+    monkeypatch.setattr(graphs.CapturedProgram, "_replay_locked",
+                        lambda self, g, args, dev: "replayed")
+    x = torch.zeros(2)
+    with graphs.no_graph_wait():  # a free graph replays
+        assert prog._replay(g, (x,), x.device, 0) == "replayed"
+    held, release = threading.Event(), threading.Event()
+
+    def holder():  # the reaped dispatch, hung inside its replay
+        with g.lock:
+            held.set()
+            release.wait(10)
+
+    th = threading.Thread(target=holder)
+    th.start()
+    try:
+        assert held.wait(5)
+        n0 = graphs.status()["failover_eager"].get("cuda:0", 0)
+        t0 = time.perf_counter()
+        with graphs.no_graph_wait():
+            out = prog._replay(g, (x,), x.device, 0)
+        assert time.perf_counter() - t0 < 0.1
+        assert torch.equal(out, x + 1)
+        assert graphs.status()["failover_eager"]["cuda:0"] == n0 + 1
+        timer = threading.Timer(0.3, release.set)
+        timer.start()
+        t0 = time.perf_counter()
+        assert prog._replay(g, (x,), x.device, 0) == "replayed"
+        assert time.perf_counter() - t0 >= 0.25
+    finally:
+        release.set()
+        th.join(5)
+    assert not th.is_alive()
+
+
+def test_the_schedulers_failover_dispatch_never_waits_on_a_graph():
+    """``_failover_retry`` runs the failover shard's verify inside
+    ``graphs.no_graph_wait`` (with and without the watchdog's thread); a
+    first dispatch does not."""
+    from lighthouse_tpu_torch.crypto.device import mesh as mesh_mod
+    from lighthouse_tpu_torch.verification_service import VerificationScheduler
+
+    seen = []
+
+    def verify(sets):
+        seen.append((mesh_mod.current_shard(), getattr(graphs._tls, "no_wait", False)))
+        return True
+
+    sched = VerificationScheduler(verify_fn=verify)
+    mesh = mesh_mod.DeviceMesh(devices=[None, None])
+    for wd in (0.0, 5.0):
+        seen.clear()
+        assert sched._dispatch_on(verify, ["s"], 1, wd) is True
+        assert sched._failover_retry(verify, ["s"], 1, RuntimeError("lost"), mesh,
+                                     watchdog_s=wd) is True
+        assert seen == [(1, False), (0, True)]
+        mesh = mesh_mod.DeviceMesh(devices=[None, None])  # shard 1 healthy again
+    assert not getattr(graphs._tls, "no_wait", False)

@@ -152,13 +152,20 @@ def test_fallback_verify_falls_back_to_the_oracle_when_the_c_build_fails(monkeyp
 
 
 def test_c_signer_and_keys_equal_the_oracle_on_64_interop_keys():
+    """The C library's keys and signatures (``native_pubkey``,
+    ``native_signer``, and ``SecretKey``, which takes them when the library
+    builds) against the pure-Python oracle's, computed here: [k]G and
+    [k]H(m)."""
     msg = b"\x5a" * 32
     keys = [tbls.SecretKey(interop_secret_key(i).k) for i in range(64)]
     for k in keys:
-        assert native_pubkey(k) == k.public_key().serialize()
-    for k in keys:
-        assert native_signer([k], msg) == k.sign(msg).serialize()
+        want = tbls.PublicKey(tbls.g1_generator().mul(k.k)).serialize()
+        assert native_pubkey(k) == k.public_key().serialize() == want
+    h = tbls.hash_to_g2(msg, tbls.DST)
     agg = tbls.AggregateSignature.infinity()
-    for k in keys[:3]:
-        agg.add_assign(k.sign(msg))
+    for i, k in enumerate(keys):
+        want = tbls.Signature(h.mul(k.k))
+        assert native_signer([k], msg) == k.sign(msg).serialize() == want.serialize()
+        if i < 3:
+            agg.add_assign(want)
     assert native_signer(keys[:3], msg) == agg.serialize()

@@ -1,10 +1,12 @@
-"""``lighthouse_tpu_torch`` stands alone: it never imports JAX, jaxlib or
-any module of the ``lighthouse_tpu`` package.
+"""``lighthouse_tpu_torch`` stands alone: it never imports JAX, jaxlib,
+any module of the ``lighthouse_tpu`` package or ``cryptography`` (which the
+card's machine need not have: the port carries its own X25519,
+ChaCha20-Poly1305 and AES-128-CTR).
 
 Two checks: a static walk over every import statement of the package's
 sources, and a fresh interpreter that imports the whole package and shows
 that the import added no ``jax*`` and no ``lighthouse_tpu``/
-``lighthouse_tpu.*`` module to ``sys.modules`` (against a snapshot taken
+``lighthouse_tpu.*`` and no ``cryptography`` module to ``sys.modules`` (against a snapshot taken
 just before the import).
 """
 
@@ -16,7 +18,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "lighthouse_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "lighthouse_tpu")
+FORBIDDEN = ("jax", "jaxlib", "lighthouse_tpu", "cryptography")
 
 
 def _forbidden(name: str) -> bool:
@@ -58,7 +60,16 @@ def test_no_forbidden_import_statements():
             "operation_pool/persistence.py", "duty_lookahead/__init__.py",
             "beacon_processor/processor.py", "utils/watchtower.py", "utils/monitoring.py",
             "utils/system_health.py", "utils/lockfile.py", "beacon_chain/light_client.py",
-            "http_api/server.py", "client.py", "cli.py", "__main__.py"} <= names
+            "http_api/server.py", "client.py", "cli.py", "__main__.py",
+            "testing/fork_choice_runner.py", "utils/snappy.py", "_native/__init__.py",
+            "utils/crypto.py", "network/noise.py", "network/transport.py", "network/mesh.py",
+            "network/discovery.py", "network/peer_manager.py", "network/service.py",
+            "eth2_client.py", "keys/derivation.py", "keys/keystore.py",
+            "keys/slashing_protection.py", "keys/wallet.py",
+            "validator_client/validator_store.py", "validator_client/services.py",
+            "validator_client/preparation_service.py", "validator_client/graffiti.py",
+            "validator_client/http_api.py", "validator_client/web3signer.py",
+            "testing/simulator.py"} <= names
     bad = []
     for path in sources:
         for name in _imports(ast.parse(path.read_text(), str(path))):
@@ -67,6 +78,7 @@ def test_no_forbidden_import_statements():
     assert not bad, bad
     assert not _forbidden("lighthouse_tpu_torch.crypto")
     assert _forbidden("lighthouse_tpu.crypto") and _forbidden("jax.numpy")
+    assert _forbidden("cryptography.hazmat.primitives.ciphers.aead")
 
 
 def test_import_adds_no_jax_or_reference_module():
@@ -99,7 +111,10 @@ print(json.dumps(added))
                 "fork_choice.fork_choice", "store.hot_cold", "beacon_chain.chain",
                 "beacon_chain.block_verification", "testing.harness",
                 "operation_pool.device_agg", "duty_lookahead", "beacon_processor.processor",
-                "utils.watchtower", "http_api.server", "client", "cli"):
+                "utils.watchtower", "http_api.server", "client", "cli",
+                "utils.snappy", "utils.crypto", "network.noise", "network.service",
+                "eth2_client", "keys.keystore", "validator_client.services",
+                "testing.simulator", "testing.fork_choice_runner"):
         assert f"lighthouse_tpu_torch.{mod}" in ported
     leaked = [m for m in added if _forbidden(m) or m.startswith("jax")]
     assert not leaked, leaked

@@ -172,3 +172,30 @@ def test_a_failed_c_build_raises(tmp_path, monkeypatch):
     assert not list(tmp_path.rglob("*.so"))
     with pytest.raises(_native.NativeBuildError, match="missing source"):
         _native._build_and_load_uncached("no_such_source")
+
+
+def test_secret_key_decides_its_signer_once(monkeypatch, caplog):
+    """``SecretKey`` signs with the C library, loaded once; when it cannot
+    be loaded the pure-Python oracle signs the same bytes, with one
+    warning for the process, and a fault of the C signer itself raises."""
+    sk = tbls.SecretKey(random.Random(7).randrange(1, R))
+    msg = bytes(range(32))
+    c_sig, c_pk = sk.sign(msg).serialize(), sk.public_key().serialize()
+    assert tbls._native_signer() is tnative
+
+    def unavailable():
+        raise tnative.NativeUnavailable("no C library here")
+
+    monkeypatch.setattr(tnative, "lib", unavailable)
+    monkeypatch.setattr(tbls, "_signer_loaded", False)
+    monkeypatch.setattr(tbls, "_signer", None)
+    with caplog.at_level("WARNING", logger=tbls.__name__):
+        assert sk.sign(msg).serialize() == c_sig
+        assert sk.public_key().serialize() == c_pk
+    assert [r.getMessage() for r in caplog.records].count(
+        "BLS signer: the C library is unavailable, the pure-Python oracle signs "
+        "(no C library here)") == 1
+    monkeypatch.setattr(tbls, "_signer_loaded", True)
+    monkeypatch.setattr(tbls, "_signer", tnative)
+    with pytest.raises(tnative.NativeUnavailable):
+        sk.sign(msg)

@@ -13,9 +13,10 @@ compared are the TYPE and sample lines. The profiler's overlap ``basis``
 is prose and is left out of the summary compared.
 
 Also here: every metric family the port registers exists in the JAX
-package with the same type, label names and buckets; the JAX families
-the port does not register are all produced by modules ROADMAP items
-15b and 15c (the rest of the node) take, each named with its reason; the
+package with the same type, label names and buckets, but for the
+``PORT_ONLY`` families (each with its reason); the JAX families the port
+does not register are all produced by the one module of ROADMAP item 15c
+still to come (the slasher), named with its reason; the
 port's ``gather()`` parses as Prometheus text; and the disabled hooks
 cost one global check.
 """
@@ -394,11 +395,13 @@ def test_slot_ledger_conserves_an_attribution_older_than_every_card():
 # the reason it waits. Every JAX family the port lacks must come from one
 # of these modules.
 NOT_PORTED = {
-    "network/peer_manager.py": "networking: item 15c",
-    "network/service.py": "networking and sync: item 15c",
     "slasher/slasher.py": "the slasher: item 15c",
-    "validator_client/preparation_service.py": "the validator client: item 15c",
-    "validator_client/services.py": "the validator client: item 15c",
+}
+
+# The port's families with no JAX twin, each with its reason.
+PORT_ONLY = {
+    "bls_device_kernel_launches_total": "launches of the hand-written CUDA kernels K1-K3; the "
+                                        "JAX kernels are Pallas calls inside XLA programs",
 }
 
 
@@ -431,11 +434,13 @@ def test_every_port_family_has_the_jax_type_and_labels():
     torch_sources = _source_families(ROOT / "lighthouse_tpu_torch")
     registered = tmetrics.registry_snapshot()
     assert set(torch_sources) <= set(registered)
-    for name in torch_sources:
+    assert set(PORT_ONLY) <= set(torch_sources) and not set(PORT_ONLY) & set(jax_sources)
+    twins = [name for name in torch_sources if name not in PORT_ONLY]
+    for name in twins:
         importlib.import_module("lighthouse_tpu." + jax_sources[name][:-3].replace("/", ".")
                                 .removesuffix(".__init__"))
     jregistered = jmetrics.registry_snapshot()
-    for name in torch_sources:
+    for name in twins:
         assert _shape(registered[name]) == _shape(jregistered[name]), name
     missing = {name: mod for name, mod in jax_sources.items() if name not in torch_sources}
     assert set(missing.values()) == set(NOT_PORTED)
@@ -459,6 +464,11 @@ def test_every_port_family_has_the_jax_type_and_labels():
         "beacon_processor/processor.py", "duty_lookahead/__init__.py", "http_api/server.py",
         "operation_pool/device_agg.py", "operation_pool/pool.py", "utils/monitoring.py",
         "utils/watchtower.py"}
+    # and the network's, the validator client's and the kernels' launches
+    assert {mod for name, mod in torch_sources.items()} >= {
+        "network/peer_manager.py", "network/service.py",
+        "validator_client/preparation_service.py", "validator_client/services.py",
+        "crypto/device/kernels.py"}
 
 
 _LINE = re.compile(
