@@ -167,7 +167,7 @@ plain torch version on the card. Phases, in order; any failure raises:
    ``CATCH_UP_RUNGS``, dials the oracle only once its head has reached
    ``RangeSync.BATCH`` and syncs from genesis, so its first batch is a
    whole ``RangeSync.BATCH`` (32) blocks in one ``process_chain_segment``
-   call; it runs on beside phase 12e and is read after it
+   call; it runs on after the phase's other checks and is read after it
    (``catch_up_result``: every root equal to the oracle's, no flush shed,
    K1-K3 launched, its segment walls, its lane counts for phase 13). A
    third node in its own
@@ -186,7 +186,32 @@ plain torch version on the card. Phases, in order; any failure raises:
    alone against the host fold with their launches; the segment node's
    sync: blocks and batches (``sync_range_*``), the bytes it read from the
    wire, the sync wall and each segment's; the phase's lane counts join
-   phase 13's;
+   phase 13's. The slasher: the block chain's node and the oracle are built
+   with ``slasher=True`` (persisting under ``Column.SLASHER`` in their
+   stores) and one beacon-processor worker, and the slot's aggregates go
+   to the beacon processor (verified on the card, applied to fork choice,
+   put in the pool, handed to the slasher). At ``EQUIVOCATION_SLOT`` the
+   producer adds a conflicting aggregate (a second aggregator, the votes of
+   ``EQUIVOCATORS`` members for the parent block) and a second block from
+   the slot's proposer, handed to the beacon processor after the slot's
+   block, which also comes by gossip there: gossip must reject it on both
+   nodes (``RepeatProposal``) after the slasher saw its header. Before the
+   block produced at slot 33, each node's slot timer must have drained one
+   attester slashing per double voter and the proposer slashing into its
+   pool (read over HTTP, byte-equal on both); the produced block must carry
+   one of each. Signed here with its proposer's interop key (the C
+   signer), it is imported on both nodes as a sibling of the harness's
+   block 33: a copy whose attester slashing carries a re-signed
+   attestation must be rejected (``InvalidSignature``), then the block must
+   import on the card on the warm rung (192, 512, 192), K1-K3 launched,
+   post-state root equal to the oracle's, the double voters and the
+   proposer slashed. Printed: the slasher's ``slasher_batch_seconds``
+   (count, sum), slashings found, validators tracked and span bytes, rows
+   and bytes held and flushed under ``Column.SLASHER``, each node process's
+   resident memory, the sibling import's wall and verify share; its lane
+   counts join phase 13's. ``eth1/`` and ``execution_layer/`` have no phase:
+   no node builds them and they reach no device (their CPU tests hold them
+   to the JAX package's);
 12e. the devnet (``devnet_phase``): ``python -m lighthouse_tpu_torch bn
    --bls-backend cuda --listen-port P`` at the minimal preset (64 interop
    validators, its compile service holding ``DEVNET_RUNGS``), a second
@@ -201,7 +226,10 @@ plain torch version on the card. Phases, in order; any failure raises:
    every canonical block; each process exits 0 within ``BN_EXIT_S`` of
    SIGTERM with no lock file, all within ``DEVNET_BUDGET_S``. The card
    bn's own launches by lane count from the vc's start to its stop (its
-   ``/lighthouse/health`` ``kernels`` block) join phase 13's;
+   ``/lighthouse/health`` ``kernels`` block) join phase 13's. It runs
+   beside phase 11 (on a thread of this script, its own processes; phase
+   11 checks verdicts and replays, no wall) and is read when phase 12d
+   ends;
 13. kernel timings where the path runs them: each kernel checked again and
    timed (device ms per launch, launches queued back to back behind a
    device sleep, CUDA events) with its plain version and its bound at 1
@@ -293,7 +321,7 @@ ENGINE_TRIPLES = (("toeplitz_int32", "composed", "composed"),
 # rates (40 unaggregated, 12 aggregates, 6 sync messages per second) for
 # this many seconds; its pools: committees of 8 signers (one attestation
 # message each) and sync-committee signers over one block root.
-SERVE_DURATION_S = 3.0
+SERVE_DURATION_S = 2.0
 SERVE_COMMITTEES = 7
 SERVE_SYNC = 16
 # the shed pass's second compile service warms only this rung: the
@@ -303,7 +331,7 @@ SERVE_SHED_RUNG = (1, 1, 1)
 # (seed 1) through the scheduler; the split passes' planner puts a kind
 # group on two shards from 2 x MESH_DP_MIN_SETS sets; the probe backoff of
 # the two-shard mesh; the watchdog's deadline and the injected hang
-MESH_DURATION_S = 2.0
+MESH_DURATION_S = 1.5
 MESH_DP_MIN_SETS = 2
 MESH_PROBE_BASE_S = 0.5
 MESH_PROBE_MAX_S = 2.0
@@ -331,8 +359,12 @@ TELEMETRY_SAMPLE_S = 0.5
 # blocks this many a process_chain_segment call (one bulk batch each). The
 # compile service warms these rungs first: gossip batches and their
 # bisection halves, the aggregates, a slot's sync messages, a block (raw
-# and with committees collapsed by the key table); the segment chain's
-# own service warms a segment's (its sync committee raw, then collapsed).
+# and with committees collapsed by the key table), and the sibling block
+# that carries the slasher's evidence (128 attestations, the proposal,
+# RANDAO and sync aggregate sets, two header sets and two indexed
+# attestation sets: 135 sets with up to 512 keys, 134 messages); the
+# segment chain's own service warms a segment's (its sync committee raw,
+# then collapsed).
 CHAIN_VALIDATORS = 16384
 CHAIN_SLOTS = 33
 CHAIN_GOSSIP_BATCH = 64
@@ -340,7 +372,8 @@ CHAIN_SEGMENT_BLOCKS = 8
 # the segment node's status polls of the oracle: within the status quota of
 # the port's peer manager (a burst of 8, then one a second)
 STATUS_POLL_S = 2.0
-CHAIN_RUNGS = ((64, 1, 8), (16, 128, 16), (512, 1, 1), (8, 512, 8), (8, 1, 8))
+CHAIN_RUNGS = ((64, 1, 8), (16, 128, 16), (512, 1, 1), (8, 512, 8), (8, 1, 8),
+               (192, 512, 192))
 # an 8-block segment is 7 sets a block (56, the 64 rung); the 128 rung
 # holds a range-sync batch of up to 18 blocks, should the oracle's head run
 # past a mark before the node asks
@@ -365,6 +398,21 @@ CHAIN_COMMITTEES_A_SLOT = 4
 CHAIN_LOOKAHEAD_EPOCH = 1
 CHAIN_CONTRIB_SLOTS = (8, 16, 24, 32)
 CHAIN_PRODUCE_SLOTS = (17, 33)
+# The slasher (both nodes are built with ClientConfig(slasher=True), their
+# beacon processors with one worker, so that each node's pool and slasher
+# see the aggregates in their order of arrival). At EQUIVOCATION_SLOT, in
+# epoch 0 after the block produced at slot 17 and not among the epoch's
+# first two slots (the conflicting vote's block, the parent, descends from
+# the target), a second aggregator of the slot's first committee
+# aggregates the votes of its first EQUIVOCATORS members for the parent
+# block with the slot's source and target (a double vote each), and the
+# slot's proposer signs a second block with EQUIVOCATION_GRAFFITI (a
+# double proposal). The block produced at the next of CHAIN_PRODUCE_SLOTS
+# must carry the evidence the slot timer drained into the pool; signed,
+# it is imported as a sibling of the harness's block of that slot.
+EQUIVOCATION_SLOT = 28
+EQUIVOCATORS = 4
+EQUIVOCATION_GRAFFITI = b"equivocation".ljust(32, b"\0")
 # Phase 12e, the devnet: 64 interop validators at the minimal preset
 # (phase0: two committees of four a slot). The card bn's compile rung holds
 # every flush the validator client's submissions and the blocks make (an
@@ -374,13 +422,13 @@ CHAIN_PRODUCE_SLOTS = (17, 33)
 # warmed after it (before genesis, most times), so the bn has no capture
 # left to finish when it stops. Genesis comes DEVNET_GENESIS_S after the
 # launch, so both bns are up and the first rung is warm before the first
-# slot (with the late joiner of phase 12d still syncing beside them); the
+# slot (beside phase 11, which runs meanwhile); the
 # devnet runs DEVNET_SLOTS slots of the system clock, and each process has
 # BN_EXIT_S to exit after SIGTERM.
 DEVNET_VALIDATORS = 64
 DEVNET_RUNGS = ((64, 4, 64), (16, 4, 16), (8, 4, 8), (4, 4, 4), (1, 1, 1))
 DEVNET_RUNG = DEVNET_RUNGS[0]
-DEVNET_GENESIS_S = 40.0
+DEVNET_GENESIS_S = 35.0
 DEVNET_VC_LEAD_S = 5.0   # the vc starts at least this long before genesis
 DEVNET_EXIT_ROOM_S = 4.0  # of the budget, left for the two bns' exits (both at once)
 DEVNET_SLOTS = 4
@@ -2592,10 +2640,61 @@ def slot_plan(h, slot: int, block_root: bytes, cache, index_of: dict):
             "block_root": block_root}, [agg for _c, _r, agg in atts]
 
 
+def equivocation(h, sb, committee, data, first: int) -> dict:
+    """The two offences of ``EQUIVOCATION_SLOT`` on the harness's head
+    state (its block ``sb`` imported), signed by the C library: a second
+    aggregator of the slot's first committee (``committee``, whose
+    aggregate has ``data`` and the aggregator ``first``) aggregates the
+    votes of its first ``EQUIVOCATORS`` members for the parent block with
+    the same source and target (a double vote each), and the slot's
+    proposer signs a copy of ``sb`` with ``EQUIVOCATION_GRAFFITI`` (a double
+    proposal; gossip rejects it, so its state root stays the real
+    block's)."""
+    from lighthouse_tpu_torch import ssz
+    from lighthouse_tpu_torch.beacon_chain.attestation_verification import _is_aggregator
+    from lighthouse_tpu_torch.crypto.native import native_sign
+    from lighthouse_tpu_torch.types import (
+        DOMAIN_AGGREGATE_AND_PROOF, DOMAIN_BEACON_ATTESTER, DOMAIN_SELECTION_PROOF,
+        compute_signing_root, get_domain)
+
+    t, spec, state = h.t, h.spec, h.state
+    slot = int(sb.message.slot)
+    epoch = slot // h.preset.SLOTS_PER_EPOCH
+    conflict = t.AttestationData(slot=slot, index=data.index,
+                                 beacon_block_root=bytes(sb.message.parent_root),
+                                 source=data.source, target=data.target)
+    voters = committee[:EQUIVOCATORS]
+    root = compute_signing_root(t.AttestationData, conflict,
+                                get_domain(spec, state, DOMAIN_BEACON_ATTESTER, epoch))
+    att = t.Attestation(aggregation_bits=[i < EQUIVOCATORS for i in range(len(committee))],
+                        data=conflict, signature=h.sign_root([h.keys[v] for v in voters], root))
+    sel_root = compute_signing_root(
+        ssz.Uint64, slot, get_domain(spec, state, DOMAIN_SELECTION_PROOF, epoch))
+    for v in committee[committee.index(first) + 1:]:
+        proof = native_sign(h.keys[v].k, sel_root)
+        if _is_aggregator(len(committee), proof):
+            break
+    else:
+        raise AssertionError(f"chain: slot {slot}'s first committee has one aggregator only")
+    msg = t.AggregateAndProof(aggregator_index=v, aggregate=att, selection_proof=proof)
+    sig = native_sign(h.keys[v].k, compute_signing_root(
+        t.AggregateAndProof, msg, get_domain(spec, state, DOMAIN_AGGREGATE_AND_PROOF, epoch)))
+    block = copy.deepcopy(sb.message)
+    block.body.graffiti = EQUIVOCATION_GRAFFITI
+    second = h.sign_block(block, int(block.proposer_index))
+    return {"aggregate": t.SignedAggregateAndProof.encode(
+                t.SignedAggregateAndProof(message=msg, signature=sig)),
+            "block": type(second).encode(second), "double_voters": sorted(voters),
+            "proposer": int(block.proposer_index)}
+
+
 def chain_producer(outq, n: int, slots: int) -> None:
     """The producer process: the harness's genesis, then each slot's block
     (the previous slot's aggregates, a full sync aggregate) and the plan of
-    its gossip, on ``outq``; None at the end."""
+    its gossip, on ``outq``; None at the end. The plan of
+    ``EQUIVOCATION_SLOT`` carries its offences (:func:`equivocation`), the
+    plan of the next of ``CHAIN_PRODUCE_SLOTS`` the evidence then due in the
+    pools."""
     from lighthouse_tpu_torch.ssz import hash_tree_root
     from lighthouse_tpu_torch.state_transition.helpers import CommitteeCache
 
@@ -2603,7 +2702,7 @@ def chain_producer(outq, n: int, slots: int) -> None:
     h = chain_harness(n)
     outq.put(("genesis", type(h.state).encode(h.state), time.perf_counter() - t0))
     index_of = {bytes(v.pubkey): i for i, v in enumerate(h.state.validators)}
-    committees, prev = {}, []
+    committees, prev, due = {}, [], None
     for slot in range(1, slots + 1):
         t0 = time.perf_counter()
         sb = h.produce_block(slot, attestations=prev, full_sync=True)
@@ -2613,6 +2712,14 @@ def chain_producer(outq, n: int, slots: int) -> None:
             committees[epoch] = CommitteeCache(h.preset, h.state, epoch)
         plan, prev = slot_plan(h, slot, hash_tree_root(sb.message), committees[epoch],
                                index_of)
+        if slot == EQUIVOCATION_SLOT:
+            first = h.t.SignedAggregateAndProof.decode(plan["aggregates"][0])
+            plan["equivocation"] = due = equivocation(
+                h, sb, [int(v) for v in committees[epoch].committee(slot, 0)], prev[0].data,
+                int(first.message.aggregator_index))
+        elif due is not None and slot in CHAIN_PRODUCE_SLOTS:
+            plan["slashings_due"] = {k: due[k] for k in ("double_voters", "proposer")}
+            due = None
         outq.put(("slot", slot, type(sb).encode(sb), plan, time.perf_counter() - t0))
     outq.put(None)
 
@@ -2646,7 +2753,9 @@ def chain_signer(inq, outqs, genesis_qs) -> None:
                 slot=slot, beacon_block_root=plan["block_root"], validator_index=v,
                 signature=sig)) for (v, _sk), sig in zip(plan["sync"], sigs[len(unagg):])]
             gossip = {"unaggregated": unagg, "aggregates": plan["aggregates"],
-                      "sync": sync, "tampered": plan["tampered"]}
+                      "sync": sync, "tampered": plan["tampered"],
+                      "equivocation": plan.get("equivocation"),
+                      "slashings_due": plan.get("slashings_due")}
             out = ("slot", slot, block, gossip, (produce_s, time.perf_counter() - t0))
             for q in outqs:
                 q.put(out)
@@ -2668,16 +2777,20 @@ def api_get(client, path: str):
         return json.loads(r.read())
 
 
-def process_sync(client, msgs) -> list:
-    """Submit ``msgs`` to the node's beacon processor as gossip sync
-    messages (it verifies them in batches and puts every verified one in
-    the node's operation pool); the results, in order."""
+def process_work(client, kind, items) -> list:
+    """Submit ``items`` to the node's beacon processor as work of ``kind``
+    (a ``WorkKind`` name) and wait for them: gossip sync messages (verified
+    in batches, each verified one put in the operation pool), aggregates
+    (verified in batches, applied to fork choice, put in the pool and
+    handed to the slasher) or blocks (the slasher sees the header, then
+    gossip verification and the import). The results, in order: a value,
+    or the handler's exception."""
     import threading
 
     from lighthouse_tpu_torch.beacon_processor import Work, WorkKind
 
-    out = [None] * len(msgs)
-    left = [len(msgs)]
+    out = [None] * len(items)
+    left = [len(items)]
     lock, done = threading.Lock(), threading.Event()
 
     def finish(i):
@@ -2689,12 +2802,12 @@ def process_sync(client, msgs) -> list:
                     done.set()
         return cb
 
-    for i, m in enumerate(msgs):
-        if not client.processor.submit(Work(WorkKind.GOSSIP_SYNC_MESSAGE, m, done=finish(i))):
-            raise AssertionError("chain: the beacon processor shed a sync message")
-    if msgs and not done.wait(CHAIN_TIMEOUT_S):
-        raise AssertionError("chain: the beacon processor did not finish a slot's sync "
-                             "messages")
+    for i, m in enumerate(items):
+        if not client.processor.submit(Work(WorkKind[kind], m, done=finish(i))):
+            raise AssertionError(f"chain: the beacon processor shed a {kind} item")
+    if items and not done.wait(CHAIN_TIMEOUT_S):
+        raise AssertionError(f"chain: the beacon processor did not finish a slot's {kind} "
+                             "work")
     return out
 
 
@@ -2706,29 +2819,50 @@ def chain_slot(client, clock, t, msg, walls=None) -> dict:
     """One slot on a node built by ``chain_node``. For a slot of
     ``CHAIN_PRODUCE_SLOTS`` a block is first produced over HTTP on the
     previous slot's head, with the RANDAO reveal of the producer's block
-    (the C signer's); it is not imported. Then the slot's block is
-    imported through ``process_block``, its unaggregated attestations
-    verified in batches of ``CHAIN_GOSSIP_BATCH``, its aggregates, and its
-    sync messages submitted to the node's beacon processor, which puts
-    them in the operation pool. For a slot of ``CHAIN_CONTRIB_SLOTS`` each
-    subcommittee's sync contribution is then asked for over HTTP. Returns
-    the roots, every verdict (``ok`` or the error kind), the produced
-    block and the contributions."""
+    (the C signer's); where the slasher's evidence is due, only once the
+    slot timer has drained it into the pool. Then the slot's block is
+    imported through ``process_block`` (at ``EQUIVOCATION_SLOT`` handed to
+    the beacon processor as a gossip block, then the proposer's second
+    block, which gossip must reject), its unaggregated attestations
+    verified in batches of ``CHAIN_GOSSIP_BATCH``, and its aggregates (then
+    the conflicting one) and sync messages submitted to the node's beacon
+    processor, which puts them in the operation pool (and the aggregates
+    in fork choice and the slasher). For a slot of ``CHAIN_CONTRIB_SLOTS``
+    each subcommittee's sync contribution is then asked for over HTTP; where
+    evidence was due, the produced block is imported as a sibling
+    (:func:`sibling_import`). Returns the roots, every verdict (``ok`` or the
+    error kind), the produced block, the contributions and the slasher's
+    evidence and sibling."""
     from lighthouse_tpu_torch.ssz import hash_tree_root
 
     chain = client.chain
     _, slot, block, gossip, _ = msg
     clock.set_slot(slot)
     sb = t.signed_block["altair"].decode(block)
+    eq, due = gossip.get("equivocation"), gossip.get("slashings_due")
     w = {}
-    produced = None
+    produced = evidence = sibling = None
+    if due is not None:
+        p0 = time.perf_counter()
+        evidence = drained_evidence(client, due)
+        w["drain_wait"] = time.perf_counter() - p0
     if slot in CHAIN_PRODUCE_SLOTS:
         p0 = time.perf_counter()
         randao = bytes(sb.message.body.randao_reveal).hex()
         produced = api_get(client, f"/eth/v2/validator/blocks/{slot}?randao_reveal=0x{randao}")
         w["produce"] = time.perf_counter() - p0
     w0 = time.perf_counter()
-    root = chain.process_block(sb)
+    if eq is None:
+        root = chain.process_block(sb)
+        equivocation = None
+    else:  # the real block, then the second one, through gossip
+        (root,) = process_work(client, "GOSSIP_BLOCK", [sb])
+        if not isinstance(root, bytes):
+            raise AssertionError(f"chain: slot {slot}'s block was not imported from gossip: "
+                                 f"{root!r}")
+        (second,) = _kinds(process_work(client, "GOSSIP_BLOCK", [
+            t.signed_block["altair"].decode(eq["block"])]))
+        equivocation = {"block": second}
     w1 = time.perf_counter()
     atts = [t.Attestation.decode(b) for b in gossip["unaggregated"]]
     unagg = []
@@ -2739,14 +2873,17 @@ def chain_slot(client, clock, t, msg, walls=None) -> dict:
     table = chain.device_key_table
     hits0 = table.status()["aggregate_hits"] if table is not None else 0
     miss0 = _metric("bls_device_key_table_agg_events_total", "miss")
-    aggs = _kinds(chain.batch_verify_aggregated_attestations_for_gossip(
-        [t.SignedAggregateAndProof.decode(b) for b in gossip["aggregates"]]))
+    aggs = _kinds(process_work(client, "GOSSIP_AGGREGATE", [
+        t.SignedAggregateAndProof.decode(b) for b in gossip["aggregates"]]))
     if table is not None:
         w["agg_hits"] = table.status()["aggregate_hits"] - hits0
         w["agg_misses"] = _metric("bls_device_key_table_agg_events_total", "miss") - miss0
+    if eq is not None:
+        (equivocation["aggregate"],) = _kinds(process_work(client, "GOSSIP_AGGREGATE", [
+            t.SignedAggregateAndProof.decode(eq["aggregate"])]))
     w3 = time.perf_counter()
-    sync = _kinds(process_sync(client, [t.SyncCommitteeMessage.decode(b)
-                                        for b in gossip["sync"]]))
+    sync = _kinds(process_work(client, "GOSSIP_SYNC_MESSAGE",
+                               [t.SyncCommitteeMessage.decode(b) for b in gossip["sync"]]))
     w4 = time.perf_counter()
     contributions = None
     if slot in CHAIN_CONTRIB_SLOTS:
@@ -2756,14 +2893,272 @@ def chain_slot(client, clock, t, msg, walls=None) -> dict:
                                    f"&subcommittee_index={i}&beacon_block_root=0x{root.hex()}")
             contributions.append(body["data"])
         w["contributions"] = time.perf_counter() - w4
+    head, state_root = chain.head_block_root.hex(), hash_tree_root(chain.head_state).hex()
+    if due is not None and produced is not None:
+        sibling = sibling_import(client, clock, t, produced, w)
     if walls is not None:
         walls.append({"import": w1 - w0, "unaggregated": w2 - w1, "aggregate": w3 - w2,
                       "sync": w4 - w3, **w})
-    return {"slot": slot, "root": root.hex(), "head": chain.head_block_root.hex(),
-            "state_root": hash_tree_root(chain.head_state).hex(),
+    return {"slot": slot, "root": root.hex(), "head": head, "state_root": state_root,
             "unaggregated": unagg, "aggregate": aggs, "sync": sync,
             "tampered": gossip["tampered"], "produced": produced,
-            "contributions": contributions}
+            "contributions": contributions, "equivocation": equivocation,
+            "evidence": evidence, "sibling": sibling}
+
+
+def drained_evidence(client, due) -> dict:
+    """Waits until the node's slot timer has drained its slasher's
+    evidence of ``due`` into the operation pool (one attester slashing for
+    each double voter, one proposer slashing), then reads the pool over
+    HTTP: each slashing as SSZ hex and the indices it slashes."""
+    from lighthouse_tpu_torch.ssz.json import from_json
+
+    chain, t = client.chain, client.chain.types
+    want = (len(due["double_voters"]), 1)
+
+    def drained():
+        c = chain.op_pool.contents()
+        return (len(c["attester_slashings"]), len(c["proposer_slashings"])) == want
+
+    _wait_for(drained, CHAIN_TIMEOUT_S, "the slot timer's drain of the slasher's evidence",
+              label="chain")
+    out = {}
+    for kind, tpe in (("attester_slashings", t.AttesterSlashing),
+                      ("proposer_slashings", t.ProposerSlashing)):
+        got = [from_json(tpe, j) for j in api_get(client, f"/eth/v1/beacon/pool/{kind}")["data"]]
+        out[kind] = [tpe.encode(s).hex() for s in got]
+        out[f"{kind}_indices"] = [
+            sorted(set(map(int, s.attestation_1.attesting_indices))
+                   & set(map(int, s.attestation_2.attesting_indices)))
+            if kind == "attester_slashings" else [int(s.signed_header_1.message.proposer_index)]
+            for s in got]
+    return out
+
+
+class timed_verify_now:
+    """Inside the block, every ``verify_now`` of ``chain``'s scheduler (the
+    block path's) appends its wall to ``self.walls``."""
+
+    def __init__(self, chain):
+        self.sched, self.walls = chain.verification_scheduler, []
+
+    def __enter__(self):
+        if self.sched is not None:
+            inner = self.inner = self.sched.verify_now
+
+            def timed(sets, kind="block"):
+                v0 = time.perf_counter()
+                try:
+                    return inner(sets, kind)
+                finally:
+                    self.walls.append(time.perf_counter() - v0)
+
+            self.sched.verify_now = timed
+        return self
+
+    def __exit__(self, *exc):
+        if self.sched is not None:
+            self.sched.verify_now = self.inner
+
+
+def sibling_import(client, clock, t, produced, walls) -> dict:
+    """The block produced over HTTP at this slot, which carries the
+    slasher's evidence, signed here with its proposer's interop key by the
+    C library (as the harness signs) and imported through
+    ``process_block`` as a sibling of the harness's block of the slot, on
+    the next slot's clock after fork choice's tick (a late block: no
+    proposer boost, and the slot's aggregates' votes keep the harness's
+    block the head). First a copy whose attester slashing's second
+    attestation is re-signed by a validator outside it (the block signed
+    again) must be rejected, then the block must import. Returns its root,
+    its post-state root, the validators it slashed and the copy's error
+    kind; its wall, the verify's share, the batch's rung and K1-K3 launches
+    and lanes go into ``walls["sibling"]``."""
+    from lighthouse_tpu_torch.crypto import backend
+    from lighthouse_tpu_torch.crypto.device import kernels
+    from lighthouse_tpu_torch.crypto.native import native_sign
+    from lighthouse_tpu_torch.ssz import hash_tree_root
+    from lighthouse_tpu_torch.ssz.json import from_json
+    from lighthouse_tpu_torch.state_transition.genesis import interop_secret_key
+    from lighthouse_tpu_torch.types import (
+        DOMAIN_BEACON_ATTESTER, DOMAIN_BEACON_PROPOSER, compute_signing_root, get_domain)
+
+    chain = client.chain
+    spe = chain.preset.SLOTS_PER_EPOCH
+    block = from_json(t.block["altair"], produced["data"])
+    slot = int(block.slot)
+    clock.set_slot(slot + 1)
+    chain.on_tick(slot + 1)
+    state = chain.head_state
+
+    def signed(b):
+        root = compute_signing_root(type(b), b, get_domain(
+            chain.spec, state, DOMAIN_BEACON_PROPOSER, slot // spe))
+        return t.signed_block["altair"](message=b, signature=native_sign(
+            interop_secret_key(int(b.proposer_index)).k, root))
+
+    bad = copy.deepcopy(block)
+    a2 = bad.body.attester_slashings[0].attestation_2
+    inside = set(map(int, a2.attesting_indices))
+    other = next(i for i in range(len(state.validators)) if i not in inside)
+    a2.signature = native_sign(interop_secret_key(other).k, compute_signing_root(
+        t.AttestationData, a2.data,
+        get_domain(chain.spec, state, DOMAIN_BEACON_ATTESTER, int(a2.data.target.epoch))))
+    with timed_verify_now(chain) as tv_bad:
+        try:
+            chain.process_block(signed(bad))
+            rejected = "imported"
+        except Exception as e:
+            rejected = getattr(e, "kind", type(e).__name__)
+    pre = {i for i, v in enumerate(state.validators) if v.slashed}
+    before = kernels.snapshot()
+    with timed_verify_now(chain) as tv:
+        w0 = time.perf_counter()
+        root = chain.process_block(signed(block))
+        wall = time.perf_counter() - w0
+    after = kernels.snapshot()
+    post = chain.state_at_block_root(root)
+    last = getattr(backend.active(), "last_batch", None) or {}
+    walls["sibling"] = {
+        "wall_s": wall, "verify_s": sum(tv.walls), "verifies": len(tv.walls),
+        "rejected_verify_s": sum(tv_bad.walls),
+        "rung": list(last["rung"]) if "rung" in last else None, "warm": last.get("warm"),
+        "path": last.get("path"),
+        "launches": {k: after[k][0] - before[k][0] for k in after},
+        "lane_hist": {k: dict(after[k][2] - before[k][2]) for k in after}}
+    return {"root": root.hex(), "state_root": hash_tree_root(post).hex(),
+            "slashed": sorted({i for i, v in enumerate(post.validators) if v.slashed} - pre),
+            "head": chain.head_block_root.hex(), "rejected": rejected}
+
+
+def count_slasher_flushes(chain) -> dict:
+    """Counts what ``chain``'s slasher writes to its store under
+    ``Column.SLASHER`` (its ``put_batch`` calls, rows and bytes), from now
+    on, into the returned dict."""
+    from lighthouse_tpu_torch.store.kv import Column
+
+    kv = chain.slasher._store
+    put_batch, out = kv.put_batch, {"flushes": 0, "rows_flushed": 0, "bytes_flushed": 0}
+
+    def counted(items):
+        items = list(items)
+        mine = [len(v) for c, _k, v in items if c == Column.SLASHER]
+        if mine:
+            out["flushes"] += 1
+            out["rows_flushed"] += len(mine)
+            out["bytes_flushed"] += sum(mine)
+        return put_batch(items)
+
+    kv.put_batch = counted
+    return out
+
+
+def rss() -> dict:
+    """This process's resident memory (``VmRSS`` of ``/proc/self/status``),
+    in KiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key == "VmRSS":
+                return {"rss_kib": int(value.split()[0])}
+    return {"rss_kib": None}
+
+
+def slasher_reading(chain, flushed) -> dict:
+    """The node's slasher after the chain: its batches
+    (``slasher_batch_seconds`` count and sum), the slashings it found, the
+    validators it tracks and their span bytes, the rows and bytes it holds
+    and has flushed under ``Column.SLASHER``, and this process's resident
+    memory."""
+    from lighthouse_tpu_torch.store.kv import Column
+    from lighthouse_tpu_torch.utils import metrics
+
+    sl = chain.slasher
+    sl.process_queued()  # the last slot's queue, should the timer not have ticked since
+    batches = metrics.get("slasher_batch_seconds")
+    held = [len(v) for _k, v in sl._store.iter_column(Column.SLASHER)]
+    spans = [*sl._min_span.values(), *sl._max_span.values()]
+    return {"batches": batches.total, "batch_s": batches.sum,
+            "found": _counter("slasher_slashings_found_total"),
+            "validators": len(sl._min_span), "span_bytes": sum(a.nbytes for a in spans),
+            "rows_held": len(held), "bytes_held": sum(held), **flushed, **rss()}
+
+
+def slasher_checks(chain, mine, walls, flushed, oracle_reading) -> dict:
+    """Phase 12d's slasher, read after the chain (``mine`` already equals
+    the oracle's records): the equivocating block rejected by gossip as a
+    repeat proposal and the conflicting aggregate accepted; the pool's
+    evidence, drained by the slot timer, one attester slashing for each
+    double voter and one proposer slashing; the block produced at the next
+    of ``CHAIN_PRODUCE_SLOTS`` carrying one of each, byte-equal to the
+    pool's; its sibling import on the card (K1-K3 launched, the offenders
+    slashed, not the head) after a copy with a re-signed attestation was
+    rejected; both slashers' readings. Returns the phase's slasher record
+    and the sibling import's launches by lane count."""
+    from lighthouse_tpu_torch.ssz.json import from_json
+
+    t = chain.types
+    eq = [r for r in mine if r["equivocation"] is not None]
+    due = [r for r in mine if r["evidence"] is not None]
+    if len(eq) != 1 or len(due) != 1:
+        raise AssertionError(f"chain: {len(eq)} slots with the offences, {len(due)} with "
+                             "the evidence due (want one each)")
+    eq, r = eq[0], due[0]
+    if eq["equivocation"] != {"block": "RepeatProposal", "aggregate": "ok"}:
+        raise AssertionError(f"chain: slot {eq['slot']}'s offences: {eq['equivocation']} "
+                             "(want the second block rejected as RepeatProposal, the "
+                             "conflicting aggregate accepted)")
+    ev = r["evidence"]
+    voters = ev["attester_slashings_indices"][0]
+    if (len(voters) != EQUIVOCATORS or ev["attester_slashings_indices"] != [voters] * len(voters)
+            or len(ev["proposer_slashings"]) != 1):
+        raise AssertionError(f"chain: the pool's evidence at slot {r['slot']}: {ev}")
+    proposer = ev["proposer_slashings_indices"][0][0]
+    body = from_json(t.block["altair"], r["produced"]["data"]).body
+    carried = {"attester": [t.AttesterSlashing.encode(x).hex() for x in body.attester_slashings],
+               "proposer": [t.ProposerSlashing.encode(x).hex() for x in body.proposer_slashings]}
+    if (len(carried["attester"]) != 1 or carried["attester"][0] not in ev["attester_slashings"]
+            or carried["proposer"] != ev["proposer_slashings"]):
+        raise AssertionError(f"chain: the block produced at slot {r['slot']} carries "
+                             f"{len(carried['attester'])} attester and "
+                             f"{len(carried['proposer'])} proposer slashings, not the pool's")
+    sib, w = r["sibling"], walls[mine.index(r)]["sibling"]
+    if (sib["rejected"] != "InvalidSignature" or sib["slashed"] != sorted([*voters, proposer])
+            or sib["head"] != r["root"]):
+        raise AssertionError(f"chain: the sibling import at slot {r['slot']}: copy "
+                             f"{sib['rejected']}, slashed {sib['slashed']}, head {sib['head']}")
+    missing = [k for k in KERNELS if not w["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"chain: the sibling import launched none of {missing}")
+    mine_reading = slasher_reading(chain, flushed)
+    for label, got in (("card node", mine_reading), ("oracle", oracle_reading)):
+        if got["found"] != EQUIVOCATORS + 1:
+            raise AssertionError(f"chain: the {label}'s slasher found {got['found']} slashings "
+                                 f"(want {EQUIVOCATORS + 1})")
+    log(f"chain slasher: slot {eq['slot']}'s second block rejected by gossip on both nodes "
+        f"({eq['equivocation']['block']}); its conflicting aggregate accepted; at slot "
+        f"{r['slot']} the pool holds {len(ev['attester_slashings'])} attester slashings "
+        f"(double voters {voters}) and the proposer slashing of validator {proposer}, "
+        f"byte-equal on both nodes, drained by the slot timer (the produce waited "
+        f"{walls[mine.index(r)]['drain_wait']:.2f} s for it)")
+    log(f"chain slasher: the block produced at slot {r['slot']} carries one attester and one "
+        f"proposer slashing (the pool's bytes); its sibling import on the card: "
+        f"{w['wall_s']:.3f} s, verify {w['verify_s']:.3f} s in {w['verifies']} verify_now "
+        f"(share {w['verify_s'] / w['wall_s']:.3f}), rung {w['rung']} warm {w['warm']} path "
+        f"{w['path']}, K1-K3 launches {json.dumps(w['launches'])}; post-state "
+        f"{sib['state_root'][:12]} equal to cpu-native's; slashed {sib['slashed']}; the "
+        f"copy with a re-signed attestation rejected on both nodes ({sib['rejected']})")
+    for label, got in (("card node", mine_reading), ("oracle", oracle_reading)):
+        log(f"chain slasher ({label}): slasher_batch_seconds count {got['batches']} sum "
+            f"{got['batch_s']:.3f} s; {got['found']:.0f} slashings found; "
+            f"{got['validators']} validators tracked, {got['span_bytes']} span bytes; "
+            f"Column.SLASHER {got['rows_held']} rows, {got['bytes_held']} bytes held, "
+            f"{got['bytes_flushed']} bytes in {got['rows_flushed']} rows flushed over "
+            f"{got['flushes']} batches; process resident {got['rss_kib']} KiB")
+    return {"equivocation_slot": eq["slot"], "evidence_slot": r["slot"], "double_voters": voters,
+            "proposer": proposer, "sibling": {k: v for k, v in w.items() if k != "lane_hist"},
+            "slashed": sib["slashed"], "drain_wait_s": walls[mine.index(r)]["drain_wait"],
+            "card_node": mine_reading, "oracle": oracle_reading}, w["lane_hist"]
 
 
 def _metric(name: str, *labels) -> float:
@@ -2810,14 +3205,17 @@ def chain_oracle(inq, outq, n: int, port_q, late_port_q, done_q) -> None:
     ``port_q`` (for the segment node) and, once its head reaches
     ``RangeSync.BATCH``, on ``late_port_q`` (for the late joiner): both
     range-sync from it, and the oracle serves until both say on ``done_q``
-    that they are done, after its results and None have gone to
-    ``outq``."""
+    that they are done, after its results, its network view, its slasher's
+    reading and None have gone to ``outq``. Its slasher and beacon
+    processor are the card node's (``slasher=True``, one worker)."""
     import queue
 
     from lighthouse_tpu_torch.network.service import RangeSync
 
     client, clock, t = chain_node(inq.get()[1], n, bls_backend="cpu-native",
-                                  verification_scheduler=False, listen_port=0)
+                                  verification_scheduler=False, listen_port=0,
+                                  slasher=True, n_workers=1)
+    flushed = count_slasher_flushes(client.chain)
     port_q.put(client.network.port)
     if client.chain.op_pool._device_agg is not None:
         raise AssertionError("chain oracle: the pool has a device aggregator")
@@ -2832,6 +3230,7 @@ def chain_oracle(inq, outq, n: int, port_q, late_port_q, done_q) -> None:
     if late is None:  # a chain shorter than one batch
         late_port_q.put(client.network.port)
     outq.put(("network", _net_view(client.network)))
+    outq.put(("slasher", slasher_reading(client.chain, flushed)))
     outq.put(None)
     try:  # serve both syncing nodes until they are done
         for _ in range(2):
@@ -3224,14 +3623,16 @@ def _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm) -> 
     t0 = time.perf_counter()
     client, clock, t = chain_node(genesis, n, bls_backend="cuda", device=str(dev),
                                   device_msm=True, duty_lookahead=True,
-                                  compile_rungs=CHAIN_RUNGS)
+                                  compile_rungs=CHAIN_RUNGS, slasher=True, n_workers=1)
     chain = client.chain
+    flushed = count_slasher_flushes(chain)
     svc, table = chain.compile_service, chain.device_key_table
     log(f"chain: the node built by ClientBuilder in {time.perf_counter() - t0:.1f} s "
         f"(pubkey cache of {len(chain.pubkey_cache)} keys; "
         f"{table.status()['validators_resident']} keys resident in the key table; "
         f"aggregator, mesh of {len(chain.device_mesh)}, lookahead, compile service, "
-        f"scheduler, beacon processor, HTTP on port {client.api.port})")
+        f"scheduler, beacon processor, slasher, HTTP on port {client.api.port}); "
+        f"resident {rss()}")
     t0 = time.perf_counter()
     if not svc.wait_idle(timeout=WARM_TIMEOUT_S):
         raise AssertionError("chain: the compile service did not warm the phase's rungs")
@@ -3239,56 +3640,48 @@ def _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm) -> 
         f"({time.perf_counter() - t0:.1f} s waited)")
     routes0, graphs0 = _route_counts(svc), _graph_count()
     agg0 = {k: _metric("op_pool_device_agg_total", k) for k in ("ok", "fallback", "small")}
-    mine, walls, now_walls, stage_s = [], [], [], []
+    mine, walls, stage_s = [], [], []
     sched = chain.verification_scheduler
-    verify_now = sched.verify_now
-
-    def timed_verify_now(sets, kind="block"):
-        v0 = time.perf_counter()
-        try:
-            return verify_now(sets, kind)
-        finally:
-            now_walls.append(time.perf_counter() - v0)
-
-    sched.verify_now = timed_verify_now
     torch.cuda.current_stream().synchronize()
     kernels.reset_launches()
     lookahead = None
     t_loop = time.perf_counter()
-    while (msg := to_main.get(timeout=CHAIN_TIMEOUT_S)) is not None:
-        if msg[1] == chain.preset.SLOTS_PER_EPOCH * CHAIN_LOOKAHEAD_EPOCH:
-            lookahead = lookahead_check(chain)
-        stage_s.append(msg[4])
-        mine.append(chain_slot(client, clock, t, msg, walls))
-        r, w = mine[-1], walls[-1]
-        if r["slot"] % 8 == 0 or r["slot"] == slots or "produce" in w:
-            log(f"  slot {r['slot']}: head {r['head'][:12]} state {r['state_root'][:12]}; "
-                f"import {w['import']:.2f} s, gossip {w['unaggregated']:.2f} / "
-                f"{w['aggregate']:.2f} / {w['sync']:.2f} s"
-                + (f", block produced in {w['produce']:.2f} s" if "produce" in w else "")
-                + (f", 4 contributions in {w['contributions']:.2f} s"
-                   if "contributions" in w else ""))
-        if lookahead is not None and "collapse" not in lookahead:
-            if (w["agg_hits"], w["agg_misses"]) != (len(r["aggregate"]), 0):
-                raise AssertionError(f"chain: slot {r['slot']}'s aggregates: {w['agg_hits']} "
-                                     f"collapsed, {w['agg_misses']} first sightings missed")
-            ratio = _metric("key_table_first_sighting_hit_ratio", str(CHAIN_LOOKAHEAD_EPOCH))
-            lookahead["collapse"] = {"slot": r["slot"], "aggregates": w["agg_hits"],
-                                     "first_sighting_hit_ratio": ratio}
-            log(f"chain: slot {r['slot']}'s {w['agg_hits']} aggregates took the collapsed "
-                f"path on their first sighting; key_table_first_sighting_hit_ratio"
-                f"{{epoch=\"{CHAIN_LOOKAHEAD_EPOCH}\"}} {ratio}")
+    with timed_verify_now(chain) as tv:
+        while (msg := to_main.get(timeout=CHAIN_TIMEOUT_S)) is not None:
+            if msg[1] == chain.preset.SLOTS_PER_EPOCH * CHAIN_LOOKAHEAD_EPOCH:
+                lookahead = lookahead_check(chain)
+            stage_s.append(msg[4])
+            mine.append(chain_slot(client, clock, t, msg, walls))
+            r, w = mine[-1], walls[-1]
+            if r["slot"] % 8 == 0 or r["slot"] == slots or "produce" in w:
+                log(f"  slot {r['slot']}: head {r['head'][:12]} state {r['state_root'][:12]}; "
+                    f"import {w['import']:.2f} s, gossip {w['unaggregated']:.2f} / "
+                    f"{w['aggregate']:.2f} / {w['sync']:.2f} s"
+                    + (f", block produced in {w['produce']:.2f} s" if "produce" in w else "")
+                    + (f", 4 contributions in {w['contributions']:.2f} s"
+                       if "contributions" in w else ""))
+            if lookahead is not None and "collapse" not in lookahead:
+                if (w["agg_hits"], w["agg_misses"]) != (len(r["aggregate"]), 0):
+                    raise AssertionError(f"chain: slot {r['slot']}'s aggregates: {w['agg_hits']} "
+                                         f"collapsed, {w['agg_misses']} first sightings missed")
+                ratio = _metric("key_table_first_sighting_hit_ratio", str(CHAIN_LOOKAHEAD_EPOCH))
+                lookahead["collapse"] = {"slot": r["slot"], "aggregates": w["agg_hits"],
+                                         "first_sighting_hit_ratio": ratio}
+                log(f"chain: slot {r['slot']}'s {w['agg_hits']} aggregates took the collapsed "
+                    f"path on their first sighting; key_table_first_sighting_hit_ratio"
+                    f"{{epoch=\"{CHAIN_LOOKAHEAD_EPOCH}\"}} {ratio}")
+    now_walls = tv.walls
     loop_s = time.perf_counter() - t_loop
     launches = dict(kernels.launches)
     hist = {k: dict(h) for k, h in kernels.lane_hist.items()}
-    sched.verify_now = verify_now
     st, slo = sched.status(), sched.slo_summary()
-    oracle, oracle_net = [], None
+    oracle, oracle_extra = [], {}
     while (r := from_oracle.get(timeout=CHAIN_TIMEOUT_S)) is not None:
         if isinstance(r, tuple):
-            oracle_net = r[1]
+            oracle_extra[r[0]] = r[1]
         else:
             oracle.append(r)
+    oracle_net = oracle_extra["network"]
     log(f"chain: the oracle's view of its network: {json.dumps(oracle_net, default=str)}")
     seg = from_segment.get(timeout=CHAIN_TIMEOUT_S)
     if mine != oracle:
@@ -3303,6 +3696,8 @@ def _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm) -> 
             raise AssertionError(f"chain: slot {r['slot']}: wrong verdicts or head")
     if len(mine) != slots:
         raise AssertionError(f"chain: {len(mine)} of {slots} slots ran")
+    slashing, sibling_hist = slasher_checks(chain, mine, walls, flushed,
+                                            oracle_extra["slasher"])
     oracle_chain = {"roots": [r["root"] for r in oracle], "head": oracle[-1]["head"],
                     "state_root": oracle[-1]["state_root"]}
     if (seg["roots"] != oracle_chain["roots"] or seg["head"] != oracle_chain["head"]
@@ -3365,11 +3760,14 @@ def _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm) -> 
            "lookahead": lookahead, "pool_sums": sums,
            "produce_s": [w["produce"] for w in walls if "produce" in w],
            "contributions_s": [w["contributions"] for w in walls if "contributions" in w],
-           "chain_time": slot_ledger.summary()}
+           "chain_time": slot_ledger.summary(), "slasher": slashing,
+           "sibling_lane_hist": sibling_hist}
     imp = sorted(w["import"] for w in walls)
+    sibling_verify = sum(w["sibling"]["verify_s"] + w["sibling"]["rejected_verify_s"]
+                         for w in walls if "sibling" in w)
     out["block_import"] = {"median_s": statistics.median(imp),
                            "p90_s": imp[int(0.9 * (len(imp) - 1))],
-                           "verify_share": sum(now_walls) / sum(imp),
+                           "verify_share": (sum(now_walls) - sibling_verify) / sum(imp),
                            "verify_now_median_s": statistics.median(now_walls)}
     b = out["block_import"]
     log(f"  block import wall median {b['median_s']:.3f} s, p90 {b['p90_s']:.3f} s; the "
@@ -3439,6 +3837,40 @@ def _chain_phase(dev, slots, n, to_main, from_oracle, from_segment, prewarm) -> 
         f"{out['graphs_captured']}")
     client.stop()
     return out
+
+
+class Beside:
+    """``fn()`` on a thread of its own from :meth:`start` on;
+    :meth:`result` waits for it and returns its value or raises its
+    exception."""
+
+    def __init__(self, fn):
+        import threading
+
+        self.fn, self.out = fn, {}
+        self.thread = threading.Thread(target=self._run, name=fn.__name__, daemon=True)
+
+    def _run(self):
+        try:
+            self.out["value"] = self.fn()
+        except BaseException as e:
+            self.out["error"] = e
+
+    def start(self) -> None:
+        self.thread.start()
+
+    def join(self) -> None:
+        """Wait for ``fn`` if it was started (it stops what it started)."""
+        if self.thread.ident is not None:
+            self.thread.join()
+
+    def result(self):
+        if self.thread.ident is None:
+            raise AssertionError(f"{self.fn.__name__} was never started")
+        self.join()
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out["value"]
 
 
 class _Proc:
@@ -4010,8 +4442,18 @@ def main() -> int:
     key_table.clear_table(table)
     log(card)
 
+    # phase 12e's devnet (its own processes, no check on a wall of this
+    # process) runs beside phase 11 and is read after phase 12d; should the
+    # script fail before, the thread is joined at exit (it stops its
+    # processes)
+    import atexit
+
+    devnet_run = Beside(devnet_phase)
+    devnet_run.start()
+    atexit.register(devnet_run.join)
     _phase_mark("11")
-    log("phase 11 engines: the gossip batch under the composed engine triples")
+    log("phase 11 engines: the gossip batch under the composed engine triples (phase 12e's "
+        "devnet starts beside it)")
     warm["engines"] = engine_phase(backend, sets, dev)
     log(card)
 
@@ -4064,6 +4506,7 @@ def main() -> int:
     key_table.set_table(prev_table)
     hists["chain"] = chain.pop("lane_hist")
     hists["chain segment"] = chain.pop("segment_lane_hist")
+    hists["chain sibling import"] = chain.pop("sibling_lane_hist")
     for label, rec in chain["node_sums"].items():
         hists[label] = rec.pop("lane_hist")
     print(json.dumps({"chain": chain}, default=str), flush=True)
@@ -4072,9 +4515,10 @@ def main() -> int:
     _phase_mark("12e")
     log("phase 12e devnet: python -m lighthouse_tpu_torch bn --bls-backend cuda --listen-port, "
         "a cpu-native bn dialing it, and a vc of 64 interop keys on the card bn, for "
-        f"{DEVNET_SLOTS} slots of the system clock")
+        f"{DEVNET_SLOTS} slots of the system clock, started beside phase 11 (its lines "
+        "among phase 11's)")
     try:
-        devnet = devnet_phase()
+        devnet = devnet_run.result()
     except BaseException:
         stop_catch_up(catch_up)
         raise
@@ -4083,8 +4527,8 @@ def main() -> int:
     log(card)
 
     _phase_mark("12d catch-up")
-    log("phase 12d catch-up: the late joiner's range sync from genesis, which ran beside "
-        "phase 12e")
+    log("phase 12d catch-up: the late joiner's range sync from genesis, which ran on after "
+        "phase 12d's checks")
     late = catch_up_result(catch_up)
     hists["chain catch-up"] = late.pop("lane_hist")
     print(json.dumps({"chain_catch_up": late}, default=str), flush=True)

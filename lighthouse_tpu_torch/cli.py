@@ -10,10 +10,6 @@ package's ``cli.py``.
     python -m lighthouse_tpu_torch am wallet-create|validator-create ...
     python -m lighthouse_tpu_torch lcli interop-genesis --out genesis.ssz
     python -m lighthouse_tpu_torch db inspect --datadir ...
-
-A command that reaches a module the port does not carry yet (of a node's,
-only the slasher) exits with status 2 and a message that names ROADMAP
-item 15c.
 """
 
 from __future__ import annotations
@@ -26,7 +22,6 @@ import sys
 import threading
 
 from .crypto.backend import DEFAULT as _DEFAULT_BACKEND
-from .utils.pending import NotPortedError
 
 
 def _add_global_flags(p: argparse.ArgumentParser) -> None:
@@ -739,14 +734,6 @@ def _db_schema_version(kv) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    try:
-        return _dispatch(args)
-    except NotPortedError as e:
-        print(f"{args.command}: {e}", file=sys.stderr)
-        return 2
-
-
-def _dispatch(args) -> int:
     if args.command == "bn":
         return run_bn(args)
     if args.command == "vc":

@@ -8,8 +8,9 @@ backend: the operation pool's ``DeviceAggregator``, the mesh, the key
 table with its delta listener, the duty lookahead, the compile service,
 then the scheduler. ``ClientConfig.device`` says where they run
 (``cuda`` unless the caller asks for the CPU, as the tests do). The
-slasher, the one option that needs a module the port does not carry yet,
-raises :class:`~.utils.pending.NotPortedError`.
+slasher (``ClientConfig.slasher``) is wired as in JAX: it persists in
+the node's store and the slot timer drains its evidence into the
+operation pool, fork choice and the network.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ from .store import HotColdDB, MemoryStore, SqliteStore
 from .types.chain_spec import ChainSpec
 from .types.containers import types_for
 from .types.preset import PRESETS
-from .utils.pending import pending
 from .utils.slot_clock import SlotClock, SystemTimeSlotClock
 
 
@@ -456,8 +456,7 @@ class ClientBuilder:
             set_msm_warm_enabled(True)
 
         if cfg.slasher:
-            with pending("slasher"):
-                from .slasher import Slasher
+            from .slasher import Slasher
 
             # found slashings are drained into the op pool by the slot
             # timer (reference: slasher/service/src/service.rs)

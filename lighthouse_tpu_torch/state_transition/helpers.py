@@ -8,6 +8,8 @@ lets the epoch-processing layer vectorize over columnar views.
 from __future__ import annotations
 
 import hashlib
+import threading
+from collections import OrderedDict
 
 import numpy as np
 
@@ -204,7 +206,34 @@ class CommitteeCache:
 
 def get_beacon_committee(preset: Preset, state, slot: int, index: int):
     epoch = compute_epoch_at_slot(preset, slot)
-    return CommitteeCache(preset, state, epoch).committee(slot, index)
+    return _epoch_committees(preset, state, epoch).committee(slot, index)
+
+
+# The last epochs' committees, by what they are a function of: a block's
+# attestations ask for the same epoch's committees three times each.
+_COMMITTEES: OrderedDict = OrderedDict()
+_COMMITTEES_MAX = 8
+_COMMITTEES_LOCK = threading.Lock()
+
+
+def _epoch_committees(preset: Preset, state, epoch: int) -> CommitteeCache:
+    """``CommitteeCache(preset, state, epoch)``, kept by (preset, epoch,
+    seed, active indices) with its permutation read-only."""
+    active = get_active_validator_indices(state, epoch)
+    key = (preset.name, epoch, get_seed(preset, state, epoch, DOMAIN_BEACON_ATTESTER),
+           np.asarray(active, np.int64).tobytes())
+    with _COMMITTEES_LOCK:
+        cache = _COMMITTEES.get(key)
+        if cache is not None:
+            _COMMITTEES.move_to_end(key)
+            return cache
+    cache = CommitteeCache(preset, state, epoch)
+    cache.shuffled.setflags(write=False)
+    with _COMMITTEES_LOCK:
+        _COMMITTEES[key] = cache
+        while len(_COMMITTEES) > _COMMITTEES_MAX:
+            _COMMITTEES.popitem(last=False)
+    return cache
 
 
 # -- proposer selection -----------------------------------------------------

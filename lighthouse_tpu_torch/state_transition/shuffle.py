@@ -14,6 +14,7 @@ Two entry points:
 from __future__ import annotations
 
 import hashlib
+from functools import lru_cache
 
 import numpy as np
 
@@ -62,10 +63,22 @@ def _shuffle_rounds(n: int, seed: bytes, rounds) -> np.ndarray:
 
 
 def shuffle_list(n: int, seed: bytes, rounds: int) -> np.ndarray:
-    """``out[i] = compute_shuffled_index(i, n, seed)`` for all i at once."""
+    """``out[i] = compute_shuffled_index(i, n, seed)`` for all i at once.
+
+    The permutation of each (n, seed, rounds) is computed once and kept
+    (the last 16, read-only): ``get_beacon_committee`` builds an epoch's
+    committees for every committee it is asked for, so without it a
+    block's attestations shuffle the whole registry three times each."""
     if n == 0:
         return np.zeros(0, np.int64)
-    return _shuffle_rounds(n, seed, range(rounds))
+    return _shuffled(n, bytes(seed), rounds)
+
+
+@lru_cache(maxsize=16)
+def _shuffled(n: int, seed: bytes, rounds: int) -> np.ndarray:
+    perm = _shuffle_rounds(n, seed, range(rounds))
+    perm.setflags(write=False)
+    return perm
 
 
 def unshuffle_list(n: int, seed: bytes, rounds: int) -> np.ndarray:

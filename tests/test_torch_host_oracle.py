@@ -14,7 +14,9 @@ Exact equality throughout:
 * ``CompileService.fallback_verify`` with the C build failing verifies on
   the pure-Python oracle, counted and journaled as any fallback;
 * the C signer, its aggregate over one root, and the C key derivation
-  give the pure-Python oracle's bytes on the first 64 interop keys.
+  give the pure-Python oracle's bytes on the first 64 interop keys (the
+  scalar multiples by a Jacobian double-and-add over the oracle's field
+  classes, held to the oracle's affine ``mul`` on the first keys).
 """
 
 from __future__ import annotations
@@ -151,20 +153,64 @@ def test_fallback_verify_falls_back_to_the_oracle_when_the_c_build_fails(monkeyp
         [(1, 0), (1, 0)]
 
 
+def _jacobian_mul(pt, k: int):
+    """[k]pt for 0 < k < r on the oracle's points and field classes, by
+    MSB-first double-and-add in Jacobian coordinates (a = 0): one field
+    inversion at the end instead of one for every step of the affine
+    ``mul``. Every intermediate multiple lies strictly between 1 and r, so
+    the doubling and the mixed addition meet no special case."""
+    x, y = pt.x, pt.y
+    X, Y, Z = x, y, x * x.inverse()
+    for bit in bin(k)[3:]:
+        a, b = X.square(), Y.square()
+        c = b.square()
+        d = (X + b).square() - a - c
+        d = d + d
+        e = a + a + a
+        c8 = c + c
+        c8 = c8 + c8
+        c8 = c8 + c8
+        X3 = e.square() - d - d
+        yz = Y * Z
+        Y, Z = e * (d - X3) - c8, yz + yz
+        X = X3
+        if bit == "1":
+            zz = Z.square()
+            h = x * zz - X
+            hh = h.square()
+            i = hh + hh
+            i = i + i
+            j = h * i
+            r = y * Z * zz - Y
+            r = r + r
+            v = X * i
+            X3 = r.square() - j - v - v
+            yj = Y * j
+            Y, Z = r * (v - X3) - yj - yj, (Z + h).square() - zz - hh
+            X = X3
+    zi = Z.inverse()
+    zi2 = zi.square()
+    return type(pt)(X * zi2, Y * zi2 * zi)
+
+
 def test_c_signer_and_keys_equal_the_oracle_on_64_interop_keys():
     """The C library's keys and signatures (``native_pubkey``,
     ``native_signer``, and ``SecretKey``, which takes them when the library
     builds) against the pure-Python oracle's, computed here: [k]G and
-    [k]H(m)."""
+    [k]H(m) (the oracle's affine ``mul`` on the first two keys, the
+    Jacobian double-and-add, held equal to it there, on all 64)."""
     msg = b"\x5a" * 32
     keys = [tbls.SecretKey(interop_secret_key(i).k) for i in range(64)]
+    g, h = tbls.g1_generator(), tbls.hash_to_g2(msg, tbls.DST)
+    for k in keys[:2]:
+        assert _jacobian_mul(g, k.k) == g.mul(k.k)
+        assert _jacobian_mul(h, k.k) == h.mul(k.k)
     for k in keys:
-        want = tbls.PublicKey(tbls.g1_generator().mul(k.k)).serialize()
+        want = tbls.PublicKey(_jacobian_mul(g, k.k)).serialize()
         assert native_pubkey(k) == k.public_key().serialize() == want
-    h = tbls.hash_to_g2(msg, tbls.DST)
     agg = tbls.AggregateSignature.infinity()
     for i, k in enumerate(keys):
-        want = tbls.Signature(h.mul(k.k))
+        want = tbls.Signature(_jacobian_mul(h, k.k))
         assert native_signer([k], msg) == k.sign(msg).serialize() == want.serialize()
         if i < 3:
             agg.add_assign(want)

@@ -4,7 +4,9 @@ card's machine need not have: the port carries its own X25519,
 ChaCha20-Poly1305 and AES-128-CTR).
 
 Two checks: a static walk over every import statement of the package's
-sources, and a fresh interpreter that imports the whole package and shows
+sources (whose file tree is the JAX package's, give or take two named
+lists: the files the port leaves out, each with its reason, and the
+port's own files), and a fresh interpreter that imports the whole package and shows
 that the import added no ``jax*`` and no ``lighthouse_tpu``/
 ``lighthouse_tpu.*`` and no ``cryptography`` module to ``sys.modules`` (against a snapshot taken
 just before the import).
@@ -19,6 +21,17 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "lighthouse_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "lighthouse_tpu", "cryptography")
+# The JAX package's files the port leaves out, with the reason.
+LEFT_OUT = {
+    "crypto/device/pallas_fp.py": "K1's Pallas kernel: fp_mul_kernel in csrc/fp_kernels.cu",
+    "crypto/device/pallas_fp2.py": "K2's and K3's Pallas kernels: fp2_mul_kernel and "
+                                   "fp2_sq_kernel in csrc/fp_kernels.cu",
+    "compile_service/cache.py": "it wraps XLA's persistent compilation cache; a CUDA graph "
+                                "cannot be written to disk",
+}
+# The port's own files, with no JAX counterpart.
+PORT_ONLY = {"crypto/device/graphs.py", "crypto/device/kernels.py", "crypto/device/linear.py",
+             "utils/crypto.py"}
 
 
 def _forbidden(name: str) -> bool:
@@ -38,6 +51,11 @@ def test_no_forbidden_import_statements():
     sources = sorted(PKG.rglob("*.py"))
     assert len(sources) >= 110
     names = {str(p.relative_to(PKG)) for p in sources}
+    jax_names = {str(p.relative_to(ROOT / "lighthouse_tpu"))
+                 for p in (ROOT / "lighthouse_tpu").rglob("*.py")}
+    assert set(LEFT_OUT) <= jax_names and not PORT_ONLY & jax_names
+    assert names == (jax_names - set(LEFT_OUT)) | PORT_ONLY, (
+        sorted(names ^ ((jax_names - set(LEFT_OUT)) | PORT_ONLY)))
     assert {"crypto/device/key_table.py", "crypto/device/msm.py",
             "crypto/device/graphs.py", "compile_service/service.py",
             "compile_service/lowering.py", "verification_service/planner.py",
@@ -69,7 +87,10 @@ def test_no_forbidden_import_statements():
             "validator_client/validator_store.py", "validator_client/services.py",
             "validator_client/preparation_service.py", "validator_client/graffiti.py",
             "validator_client/http_api.py", "validator_client/web3signer.py",
-            "testing/simulator.py"} <= names
+            "testing/simulator.py", "slasher/__init__.py", "slasher/slasher.py",
+            "eth1/__init__.py", "eth1/service.py", "execution_layer/__init__.py",
+            "execution_layer/engine_api.py", "execution_layer/execution_layer.py",
+            "execution_layer/mock.py", "execution_layer/builder_client.py"} <= names
     bad = []
     for path in sources:
         for name in _imports(ast.parse(path.read_text(), str(path))):
@@ -114,7 +135,10 @@ print(json.dumps(added))
                 "utils.watchtower", "http_api.server", "client", "cli",
                 "utils.snappy", "utils.crypto", "network.noise", "network.service",
                 "eth2_client", "keys.keystore", "validator_client.services",
-                "testing.simulator", "testing.fork_choice_runner"):
+                "testing.simulator", "testing.fork_choice_runner", "slasher.slasher",
+                "eth1.service", "execution_layer.engine_api",
+                "execution_layer.execution_layer", "execution_layer.mock",
+                "execution_layer.builder_client"):
         assert f"lighthouse_tpu_torch.{mod}" in ported
     leaked = [m for m in added if _forbidden(m) or m.startswith("jax")]
     assert not leaked, leaked

@@ -16,9 +16,11 @@ Exact equality on shared inputs throughout:
 
 And the port alone: a ``ClientBuilder`` with the ``cuda`` backend on the
 CPU wires the aggregator, mesh, key table, lookahead, compile service and
-scheduler in the JAX builder's order; the slasher option, the one that
-needs an item-15c module still, says so; ``python -m lighthouse_tpu_torch
-bn`` comes up and stops on SIGTERM.
+scheduler in the JAX builder's order; the slasher option builds the
+slasher on the node's store, and two conflicting aggregates through the
+beacon processor end, by the slot timer's drain, in a produced block
+byte-equal to a JAX node's; ``python -m lighthouse_tpu_torch bn`` comes
+up and stops on SIGTERM.
 """
 
 from __future__ import annotations
@@ -57,13 +59,13 @@ from lighthouse_tpu.utils import (
 from lighthouse_tpu_torch.compile_service import service as tservice
 from lighthouse_tpu_torch.crypto import backend as tbackend
 from lighthouse_tpu_torch.crypto.device import key_table as tkey_table, mesh as tmesh
+from lighthouse_tpu_torch.ssz.json import from_json
 from lighthouse_tpu_torch.types import types_for as ttypes_for
 from lighthouse_tpu_torch.types.chain_spec import minimal_spec as tminimal_spec
 from lighthouse_tpu_torch.types.preset import MINIMAL as TMINIMAL
 from lighthouse_tpu_torch.utils import (
     flight_recorder as tfr, lockfile as tlock, metrics as tmetrics, monitoring as tmon,
     slot_clock as tclock, timeseries as tts, watchtower as twt)
-from lighthouse_tpu_torch.utils.pending import NotPortedError
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKS = 5
@@ -401,23 +403,131 @@ def test_cli_parser_matches_jax_with_cuda_for_tpu():
 
 
 def test_item_15c_options_and_commands_say_so(chain_bytes):
-    """Only the slasher still waits for item 15c; the network, checkpoint
-    sync and the commands that needed the other 15c modules run
+    """Item 15c is done: ``slasher=True`` builds the port's slasher on the
+    node's store (as the JAX builder does), and ``listen_port`` a network;
+    the commands that needed the other 15c modules run
     (``tests/test_torch_validator_client.py``)."""
+    from lighthouse_tpu_torch.slasher import Slasher
+
     t = ttypes_for(TMINIMAL)
     genesis = t.state["phase0"].decode(chain_bytes[0])
-    b = tclient.ClientBuilder(tclient.ClientConfig(
-        preset_base="minimal", bls_backend="fake", http_enabled=False, slasher=True),
-        tminimal_spec()).with_genesis_state(genesis)
-    with pytest.raises(NotPortedError, match="ROADMAP item 15c"):
-        b.build()
     client = tclient.ClientBuilder(tclient.ClientConfig(
-        preset_base="minimal", bls_backend="fake", http_enabled=False, listen_port=0),
-        tminimal_spec()).with_genesis_state(genesis).build()
+        preset_base="minimal", bls_backend="fake", http_enabled=False, slasher=True,
+        listen_port=0), tminimal_spec()).with_genesis_state(genesis).build()
     try:
+        sl = client.chain.slasher
+        assert isinstance(sl, Slasher) and sl.history == 4096
+        assert sl.slots_per_epoch == TMINIMAL.SLOTS_PER_EPOCH
+        assert sl._store is not None and sl._store is client.chain.store.kv
         assert client.network is not None and client.network.port > 0
     finally:
         client.stop()
+    bare = tclient.ClientBuilder(tclient.ClientConfig(
+        preset_base="minimal", bls_backend="fake", http_enabled=False),
+        tminimal_spec()).with_genesis_state(genesis).build()
+    try:
+        assert bare.chain.slasher is None
+    finally:
+        bare.stop()
+
+
+@pytest.fixture(scope="module")
+def slasher_bytes():
+    """A JAX chain of 16 validators (one committee of two a slot, both
+    aggregators), three fake-signed blocks, and two aggregates of slot 3's
+    committee, one from each member: the first for the head block, the
+    second for its parent with the same source and target (a double vote
+    by both)."""
+    from lighthouse_tpu.state_transition.helpers import CommitteeCache
+
+    saved = (jbackend._active, jbackend._active_name)
+    jbackend.set_backend("fake")
+    try:
+        h = JHarness(JMINIMAL, jminimal_spec(), 16, fake_sign=True)
+        genesis = type(h.state).encode(h.state)
+        blocks = h.extend_chain(3, strategy="none")
+        t = h.t
+        (att,) = h.attestations_for_slot(h.state, 3)
+        conflict = t.Attestation(
+            aggregation_bits=list(att.aggregation_bits), signature=att.signature,
+            data=t.AttestationData(slot=3, index=0,
+                                   beacon_block_root=bytes(blocks[-1].message.parent_root),
+                                   source=att.data.source, target=att.data.target))
+        committee = [int(v) for v in CommitteeCache(JMINIMAL, h.state, 0).committee(3, 0)]
+        aggs = [t.SignedAggregateAndProof.encode(t.SignedAggregateAndProof(
+            message=t.AggregateAndProof(aggregator_index=v, aggregate=a,
+                                        selection_proof=h._fake_sig),
+            signature=h._fake_sig)) for v, a in zip(committee, (att, conflict))]
+    finally:
+        jbackend._active, jbackend._active_name = saved
+    return genesis, [type(b).encode(b) for b in blocks], aggs, committee, h._fake_sig
+
+
+def _slasher_node_run(client_mod, types_for, preset, spec, clock_mod, bp, slasher_bytes):
+    """A node with the slasher and one beacon-processor worker: the blocks,
+    the two aggregates through its beacon processor, the slot timer's
+    drain on the next slot, then a block produced over HTTP."""
+    genesis, blocks, aggs, _committee, fake_sig = slasher_bytes
+    t = types_for(preset)
+    clock = clock_mod.ManualSlotClock(0, spec.seconds_per_slot, preset.SLOTS_PER_EPOCH)
+    client = (client_mod.ClientBuilder(
+        client_mod.ClientConfig(preset_base="minimal", bls_backend="fake", http_port=0,
+                                verification_scheduler=False, slasher=True, n_workers=1), spec)
+        .with_genesis_state(t.state["phase0"].decode(genesis)).with_slot_clock(clock).build())
+    stop = threading.Event()
+    try:
+        chain = client.chain
+        for raw in blocks:
+            sb = t.signed_block["phase0"].decode(raw)
+            clock.set_slot(sb.message.slot)
+            chain.process_block(sb)
+        done = [threading.Event() for _ in aggs]
+        verdicts = [None] * len(aggs)
+        for i, raw in enumerate(aggs):
+            def cb(r, i=i):
+                verdicts[i] = type(r).__name__
+                done[i].set()
+            assert client.processor.submit(bp.Work(
+                bp.WorkKind.GOSSIP_AGGREGATE, t.SignedAggregateAndProof.decode(raw), done=cb))
+            assert done[i].wait(30)
+        clock.set_slot(4)
+        timer = threading.Thread(target=client_mod._slot_timer, args=(chain, clock, stop),
+                                 daemon=True)
+        timer.start()
+        for _ in range(500):
+            if chain.op_pool.contents()["attester_slashings"]:
+                break
+            stop.wait(0.02)
+        stop.set()
+        timer.join(10)
+        pool = [t.AttesterSlashing.encode(s) for s in
+                chain.op_pool.contents()["attester_slashings"]]
+        client.api.start()
+        status, body = _get(client.api.port, f"/eth/v2/validator/blocks/4?randao_reveal=0x"
+                                             f"{bytes(fake_sig).hex()}")
+    finally:
+        stop.set()
+        client.stop()
+    return {"verdicts": verdicts, "pool": pool, "status": status, "block": body}
+
+
+def test_slasher_evidence_reaches_the_produced_block_as_in_a_jax_node(slasher_bytes):
+    for m in (jbackend, tbackend):
+        m.set_backend("fake")
+    got = _slasher_node_run(tclient, ttypes_for, TMINIMAL, tminimal_spec(), tclock, tbp,
+                            slasher_bytes)
+    want = _slasher_node_run(jclient, jtypes_for, JMINIMAL, jminimal_spec(), jclock, jbp,
+                             slasher_bytes)
+    assert got == want
+    assert got["verdicts"] == ["VerifiedAggregatedAttestation"] * 2
+    committee = slasher_bytes[3]
+    t = ttypes_for(TMINIMAL)
+    assert len(got["pool"]) == len(committee)  # one for each double voter
+    assert got["status"] == 200
+    doc = json.loads(got["block"])["data"]
+    (sl,) = doc["body"]["attester_slashings"]
+    assert sorted(int(i) for i in sl["attestation_1"]["attesting_indices"]) == sorted(committee)
+    assert t.AttesterSlashing.encode(from_json(t.AttesterSlashing, sl)) in got["pool"]
 
 
 # ---------------------------------------------------------------------------

@@ -149,6 +149,45 @@ def _set_bytes(sets):
             for s in sets]
 
 
+def test_shuffle_list_keeps_each_permutation_read_only():
+    """The port keeps the last permutations it computed: the same
+    (n, seed, rounds) returns the same read-only array, equal to the JAX
+    package's; another seed or count is shuffled anew."""
+    rng = np.random.default_rng(11)
+    seed = bytes(rng.integers(0, 256, size=32, dtype=np.uint8))
+    first = tshuffle.shuffle_list(300, seed, 10)
+    assert tshuffle.shuffle_list(300, bytearray(seed), 10) is first
+    assert not first.flags.writeable
+    with pytest.raises(ValueError):
+        first[0] = 1
+    assert first.tolist() == jshuffle.shuffle_list(300, seed, 10).tolist()
+    other = tshuffle.shuffle_list(301, seed, 10)
+    assert other is not first
+    assert other.tolist() == jshuffle.shuffle_list(301, seed, 10).tolist()
+
+
+def test_beacon_committees_are_kept_by_epoch_seed_and_active_set(fake_chains):
+    """``get_beacon_committee`` keeps each epoch's committees by what they
+    are a function of: the same epoch of an equal state gives the JAX
+    committees from one read-only cache; a validator leaving the active
+    set gives new ones, equal to the JAX package's again."""
+    js, ts = fake_chains["altair"][2][-1]
+    js, ts2 = copy.deepcopy(js), copy.deepcopy(ts)
+    first = thelpers.get_beacon_committee(TMINIMAL, ts, 9, 0)
+    again = thelpers.get_beacon_committee(TMINIMAL, ts2, 9, 0)
+    assert not first.flags.writeable and again.base is first.base
+    assert [int(v) for v in again] == [int(v) for v in jhelpers.get_beacon_committee(
+        JMINIMAL, js, 9, 0)]
+    for s in (js, ts2):
+        s.validators[int(first[0])].exit_epoch = 1  # inactive from epoch 1 on
+    moved = thelpers.get_beacon_committee(TMINIMAL, ts2, 9, 0)
+    assert moved.base is not first.base
+    assert [int(v) for v in moved] == [int(v) for v in jhelpers.get_beacon_committee(
+        JMINIMAL, js, 9, 0)]
+    assert int(first[0]) not in {int(v) for slot in range(8, 16)
+                                 for v in thelpers.get_beacon_committee(TMINIMAL, ts2, slot, 0)}
+
+
 def test_three_signed_blocks_import_on_cpu_native_with_equal_signature_sets():
     jbackend.set_backend("cpu-native")
     tbackend.set_backend("cpu-native")

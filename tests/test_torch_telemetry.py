@@ -14,9 +14,8 @@ is prose and is left out of the summary compared.
 
 Also here: every metric family the port registers exists in the JAX
 package with the same type, label names and buckets, but for the
-``PORT_ONLY`` families (each with its reason); the JAX families the port
-does not register are all produced by the one module of ROADMAP item 15c
-still to come (the slasher), named with its reason; the
+``PORT_ONLY`` families (each with its reason); the port registers every
+JAX family, the slasher's among them; the
 port's ``gather()`` parses as Prometheus text; and the disabled hooks
 cost one global check.
 """
@@ -391,13 +390,6 @@ def test_slot_ledger_conserves_an_attribution_older_than_every_card():
 # Family parity
 # ---------------------------------------------------------------------------
 
-# The JAX modules whose families the port does not register, each with
-# the reason it waits. Every JAX family the port lacks must come from one
-# of these modules.
-NOT_PORTED = {
-    "slasher/slasher.py": "the slasher: item 15c",
-}
-
 # The port's families with no JAX twin, each with its reason.
 PORT_ONLY = {
     "bls_device_kernel_launches_total": "launches of the hand-written CUDA kernels K1-K3; the "
@@ -443,7 +435,7 @@ def test_every_port_family_has_the_jax_type_and_labels():
     for name in twins:
         assert _shape(registered[name]) == _shape(jregistered[name]), name
     missing = {name: mod for name, mod in jax_sources.items() if name not in torch_sources}
-    assert set(missing.values()) == set(NOT_PORTED)
+    assert not missing, missing
     # the telemetry this slice ported is all there
     assert {"bls_device_stage_seconds", "bls_device_pack_seconds",
             "bls_device_bubble_seconds_total", "bls_device_shard_busy_seconds_total",
@@ -464,6 +456,9 @@ def test_every_port_family_has_the_jax_type_and_labels():
         "beacon_processor/processor.py", "duty_lookahead/__init__.py", "http_api/server.py",
         "operation_pool/device_agg.py", "operation_pool/pool.py", "utils/monitoring.py",
         "utils/watchtower.py"}
+    # and the slasher's, with the JAX shapes
+    assert {"slasher_batch_seconds", "slasher_slashings_found_total"} <= set(twins)
+    assert torch_sources["slasher_batch_seconds"] == "slasher/slasher.py"
     # and the network's, the validator client's and the kernels' launches
     assert {mod for name, mod in torch_sources.items()} >= {
         "network/peer_manager.py", "network/service.py",
